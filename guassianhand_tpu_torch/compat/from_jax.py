@@ -1,0 +1,223 @@
+"""Load the JAX model's parameters into the port's modules.
+
+``load_jax_params(module, params)`` takes a flax ``params`` tree (nested
+dicts of numpy arrays, with or without the outer ``"params"`` key) for the
+JAX counterpart of ``module`` and loads it by the port's ``state_dict``
+keys, which are the reference torch names. The conversions:
+
+- Dense kernel (in, out) -> Linear weight (out, in); bias as is;
+- LayerNorm / GroupNorm scale -> weight;
+- ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight
+  (in, out, kh, kw) with the spatial taps flipped (the two libraries'
+  transposed convolutions are mirror images; without the flip every
+  upsampled 2x2 block comes out transposed);
+- per-identity maps and tokenizer embeddings as they are;
+- the JAX model keeps ``self_attn_layer`` at its top level, the reference
+  (and the port) under ``renderer``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from guassianhand_tpu_torch.models.one_shot import OneShotAvatarModel
+from guassianhand_tpu_torch.nn.heads import (AdditionalFeaturesFC, GSLayer,
+                                             SelfAttn, VertPosRefinement,
+                                             VertValid)
+from guassianhand_tpu_torch.nn.mlp import (MLP, MLPBlock, MLPResBlock,
+                                           ResnetBlockFC)
+from guassianhand_tpu_torch.nn.pointnet import LocalPoolPointnet
+from guassianhand_tpu_torch.nn.tokenizers import (
+    TriplaneLearnablePositionalEmbedding, TriplaneUpsampler)
+from guassianhand_tpu_torch.nn.transformer import (Attention, Transformer1D,
+                                                   TransformerBlock)
+from guassianhand_tpu_torch.render.renderer import GSRenderer
+
+Tree = Dict[str, Any]
+
+PER_IDENTITY = ("identity_code_book", "identity_code_one_shot", "map_bias",
+                "color_w", "color_b", "xyz_b", "xyz_b_map", "opacity_b")
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _under(prefix: str, sd: Tree) -> Tree:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def _linear(p: Tree) -> Tree:
+    out = {"weight": _np(p["kernel"]).T}
+    if "bias" in p:
+        out["bias"] = _np(p["bias"])
+    return out
+
+
+def _norm(p: Tree) -> Tree:
+    return {"weight": _np(p["scale"]), "bias": _np(p["bias"])}
+
+
+def _mlp(m: MLP, p: Tree) -> Tree:
+    n_dense = sum(isinstance(x, nn.Linear) for x in m.layers)
+    sd = {}
+    for i in range(n_dense):
+        sd.update(_under(f"layers.{2 * i}", _linear(p[f"Dense_{i}"])))
+    return sd
+
+
+def _mlp_block(m, p: Tree) -> Tree:
+    return {**_under("layer_norm", _norm(p["LayerNorm_0"])),
+            **_under("fc1", _linear(p["Dense_0"])),
+            **_under("fc2", _linear(p["Dense_1"]))}
+
+
+def _resnet_fc(m: ResnetBlockFC, p: Tree) -> Tree:
+    sd = {**_under("fc_0", _linear(p["Dense_0"])),
+          **_under("fc_1", _linear(p["Dense_1"]))}
+    if m.shortcut is not None:
+        sd.update(_under("shortcut", _linear(p["Dense_2"])))
+    return sd
+
+
+def _pointnet(m: LocalPoolPointnet, p: Tree) -> Tree:
+    sd = {**_under("fc_pos", _linear(p["Dense_0"])),
+          **_under("fc_c", _linear(p["Dense_1"]))}
+    for i, block in enumerate(m.blocks):
+        sd.update(_under(f"blocks.{i}", _resnet_fc(block, p[f"block_{i}"])))
+    return sd
+
+
+def _tokenizer(m, p: Tree) -> Tree:
+    return {"embeddings": _np(p["embeddings"])}
+
+
+def _upsampler(m: TriplaneUpsampler, p: Tree) -> Tree:
+    k = _np(p["ConvTranspose_0"]["kernel"])             # (kh, kw, in, out)
+    return {"upsample.weight": np.ascontiguousarray(
+                k[::-1, ::-1].transpose(2, 3, 0, 1)),
+            "upsample.bias": _np(p["ConvTranspose_0"]["bias"])}
+
+
+def _attention(m: Attention, p: Tree) -> Tree:
+    return {"to_q.weight": _np(p["Dense_0"]["kernel"]).T,
+            "to_k.weight": _np(p["Dense_1"]["kernel"]).T,
+            "to_v.weight": _np(p["Dense_2"]["kernel"]).T,
+            **_under("to_out.0", _linear(p["Dense_3"]))}
+
+
+def _transformer_block(m: TransformerBlock, p: Tree) -> Tree:
+    return {**_under("norm1", _norm(p["norm1"])),
+            **_under("attn1", _attention(m.attn1, p["attn1"])),
+            **_under("norm2", _norm(p["norm2"])),
+            **_under("attn2", _attention(m.attn2, p["attn2"])),
+            **_under("norm3", _norm(p["norm3"])),
+            **_under("ff.net.0.proj", _linear(p["ff"]["GEGLU_0"]["Dense_0"])),
+            **_under("ff.net.2", _linear(p["ff"]["Dense_0"]))}
+
+
+def _transformer1d(m: Transformer1D, p: Tree) -> Tree:
+    sd = {**_under("norm", _norm(p["GroupNorm_0"])),
+          **_under("proj_in", _linear(p["Dense_0"])),
+          **_under("proj_out", _linear(p["Dense_1"]))}
+    for i, block in enumerate(m.transformer_blocks):
+        sd.update(_under(f"transformer_blocks.{i}",
+                         _transformer_block(block, p[f"block_{i}"])))
+    return sd
+
+
+def _gs_layer(m: GSLayer, p: Tree) -> Tree:
+    names = ("xyz", "scaling", "rotation", "opacity", "shs")
+    sd = {}
+    for i, name in enumerate(names):
+        sd.update(_under(f"out_layers.{i}", _linear(p[name])))
+    return sd
+
+
+def _valid_head(m, p: Tree) -> Tree:
+    return {**_under("ff", _mlp_block(m.ff, p["MLPBlock_0"])),
+            **_under("fc", _linear(p["Dense_0"]))}
+
+
+def _additional(m: AdditionalFeaturesFC, p: Tree) -> Tree:
+    return _under("ff1", _mlp_block(m.ff1, p["MLPBlock_0"]))
+
+
+def _self_attn(m: SelfAttn, p: Tree) -> Tree:
+    return {**_under("layer_norm", _norm(p["LayerNorm_0"])),
+            **_under("w_qs", _linear(p["Dense_0"])),
+            **_under("w_ks", _linear(p["Dense_1"])),
+            **_under("w_vs", _linear(p["Dense_2"])),
+            **_under("fc", _linear(p["Dense_3"])),
+            **_under("ff", _mlp_block(m.ff, p["MLPResBlock_0"]))}
+
+
+def _renderer(m: GSRenderer, p: Tree) -> Tree:
+    sd = {**_under("mlp_net", _mlp(m.mlp_net, p["mlp_net"])),
+          **_under("gs_net", _gs_layer(m.gs_net, p["gs_net"])),
+          **_under("gs_valid", _valid_head(m.gs_valid, p["gs_valid"])),
+          **_under("vert_pos_refinement",
+                   _valid_head(m.vert_pos_refinement,
+                               p["vert_pos_refinement"]))}
+    if "self_attn_layer" in p:
+        sd.update(_under("self_attn_layer",
+                         _self_attn(m.self_attn_layer, p["self_attn_layer"])))
+    return sd
+
+
+def _model(m: OneShotAvatarModel, p: Tree) -> Tree:
+    sd = {k: _np(p[k]) for k in PER_IDENTITY}
+    for name, fn in (("camera_embedder", _mlp), ("pose_embedder", _mlp),
+                     ("point_encoder_texture", _pointnet),
+                     ("point_encoder_shade", _pointnet),
+                     ("tokenizer_texture", _tokenizer),
+                     ("tokenizer_shade", _tokenizer),
+                     ("backbone", _transformer1d),
+                     ("backbone_shade", _transformer1d),
+                     ("post_processor_texture", _upsampler),
+                     ("additional_features_fc", _additional)):
+        sd.update(_under(name, fn(getattr(m, name), p[name])))
+    renderer = {**p["renderer"], "self_attn_layer": p["self_attn_layer"]}
+    sd.update(_under("renderer", _renderer(m.renderer, renderer)))
+    return sd
+
+
+_CONVERTERS: Dict[type, Callable[[nn.Module, Tree], Tree]] = {
+    OneShotAvatarModel: _model, GSRenderer: _renderer, MLP: _mlp,
+    MLPBlock: _mlp_block, MLPResBlock: _mlp_block,
+    ResnetBlockFC: _resnet_fc, LocalPoolPointnet: _pointnet,
+    TriplaneLearnablePositionalEmbedding: _tokenizer,
+    TriplaneUpsampler: _upsampler, Attention: _attention,
+    TransformerBlock: _transformer_block, Transformer1D: _transformer1d,
+    GSLayer: _gs_layer, VertValid: _valid_head,
+    VertPosRefinement: _valid_head, AdditionalFeaturesFC: _additional,
+    SelfAttn: _self_attn,
+}
+
+
+def state_dict_from_jax(module: nn.Module, params: Tree) -> Dict[str, np.ndarray]:
+    """The port ``state_dict`` (numpy values) for ``module`` from the flax
+    params of its JAX counterpart."""
+    if "params" in params:
+        params = params["params"]
+    try:
+        convert = _CONVERTERS[type(module)]
+    except KeyError:
+        raise TypeError(f"no JAX parameter mapping for {type(module).__name__}")
+    return convert(module, params)
+
+
+def load_jax_params(module: nn.Module, params: Tree, strict: bool = True):
+    """Load flax ``params`` into ``module`` in place. Returns
+    ``load_state_dict``'s (missing_keys, unexpected_keys)."""
+    ref = module.state_dict()
+    sd = {}
+    for k, v in state_dict_from_jax(module, params).items():
+        if k in ref and tuple(ref[k].shape) != v.shape:
+            raise ValueError(f"{k}: JAX shape {v.shape} vs port "
+                             f"{tuple(ref[k].shape)}")
+        sd[k] = torch.as_tensor(np.ascontiguousarray(v))
+    return module.load_state_dict(sd, strict=strict)

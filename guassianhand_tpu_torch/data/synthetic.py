@@ -1,0 +1,117 @@
+"""Synthetic two-hand scenes (counterpart of ``data/synthetic.py``): a
+synthetic MANO-like model posed by LBS, edge-subdivided, with packed UV
+atlas coordinates and the kNN interaction mask. Only the model inputs are
+built here (the JAX ``with_target=False`` batch)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from guassianhand_tpu_torch.mano.lbs import ManoModel, lbs
+from guassianhand_tpu_torch.mano.model import synthetic_mano_model
+from guassianhand_tpu_torch.mano.uv import synthetic_uv_atlas
+from guassianhand_tpu_torch.ops.knn import interaction_mask
+from guassianhand_tpu_torch.ops.subdivision import (build_subdivision_plans,
+                                                    subdivide_n)
+
+
+@dataclasses.dataclass
+class SyntheticHandScene:
+    model_r: ManoModel
+    model_l: ManoModel
+    plans_r: tuple
+    plans_l: tuple
+    uv_r: np.ndarray   # (Vr_sub, 2) packed atlas
+    uv_l: np.ndarray
+    height: int
+    width: int
+    K: np.ndarray
+    w2c: np.ndarray
+    device: torch.device
+
+    @staticmethod
+    def build(n_vertices: int = 778, subdivide: int = 1, height: int = 128,
+              width: int = 128, seed: int = 0,
+              device=None) -> "SyntheticHandScene":
+        device = torch.device(device or "cuda")
+        model_r = synthetic_mano_model(n_vertices, seed=seed, device=device)
+        model_l = synthetic_mano_model(n_vertices, seed=seed + 1, device=device)
+        plans_r = build_subdivision_plans(model_r.faces, n_vertices, subdivide)
+        plans_l = build_subdivision_plans(model_l.faces, n_vertices, subdivide)
+
+        def sub_uv(uv, plans):
+            for plan in plans:
+                e = plan.edges
+                uv = np.concatenate([uv, 0.5 * (uv[e[:, 0]] + uv[e[:, 1]])])
+            return uv
+
+        uv_r = sub_uv(synthetic_uv_atlas(model_r.v_template.cpu().numpy(),
+                                         True), plans_r)
+        uv_l = sub_uv(synthetic_uv_atlas(model_l.v_template.cpu().numpy(),
+                                         False), plans_l)
+        f = 0.9 * width
+        K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]],
+                     np.float32)
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[2, 3] = 0.6
+        return SyntheticHandScene(model_r, model_l, plans_r, plans_l, uv_r,
+                                  uv_l, height, width, K, w2c, device)
+
+    @property
+    def n_points(self) -> int:
+        return self.uv_r.shape[0] + self.uv_l.shape[0]
+
+    def pose_points(self, pose_r: torch.Tensor, pose_l: torch.Tensor,
+                    separation: float = 0.08) -> torch.Tensor:
+        """Posed (N, 3) subdivided vertices, [right, left]; the left hand is
+        mirrored and shifted by ``separation`` in +x (0.08 overlaps the
+        hands: about every point interacts)."""
+        betas = torch.zeros(10, device=self.device)
+        vr, _ = lbs(self.model_r, betas, pose_r)
+        vl, _ = lbs(self.model_l, betas, pose_l)
+        vl = vl * torch.tensor([-1.0, 1.0, 1.0], device=self.device) \
+            + torch.tensor([separation, 0.0, 0.0], device=self.device)
+        return torch.cat([subdivide_n(vr, self.plans_r),
+                          subdivide_n(vl, self.plans_l)], dim=0)
+
+    def vert_uv(self) -> torch.Tensor:
+        return torch.as_tensor(np.concatenate([self.uv_r, self.uv_l]),
+                               dtype=torch.float32, device=self.device)
+
+
+def synthetic_batch(scene: SyntheticHandScene, seed: int = 0,
+                    pose_scale: float = 0.3,
+                    separation: float = 0.08) -> Dict[str, torch.Tensor]:
+    """A model-ready batch (B=1) for the pose drawn from ``seed``."""
+    dev = scene.device
+    rng = np.random.RandomState(seed)
+    pose_r = torch.as_tensor(rng.uniform(-pose_scale, pose_scale, 48),
+                             dtype=torch.float32, device=dev)
+    pose_l = torch.as_tensor(rng.uniform(-pose_scale, pose_scale, 48),
+                             dtype=torch.float32, device=dev)
+    tpose = torch.zeros(48, device=dev)
+    points = scene.pose_points(pose_r, pose_l, separation=separation)
+    points_t = scene.pose_points(tpose, tpose, separation=separation)
+    inter = interaction_mask(points, points_t,
+                             k=min(100, points.shape[0] // 4))
+
+    K = torch.as_tensor(scene.K, device=dev)
+    w2c = torch.as_tensor(scene.w2c, device=dev)
+    K_normed = K.clone()
+    K_normed[0] /= scene.width
+    K_normed[1] /= scene.height
+    return {
+        "points": points[None],
+        "points_tar": points[None],
+        "vert_uv": scene.vert_uv()[None],
+        "inter_mask": inter[None],
+        "mano_pose": torch.cat([pose_r, pose_l])[None],
+        "c2w": torch.linalg.inv(w2c)[None],
+        "intrinsic_normed": K_normed[None],
+        "w2c_render": w2c[None, None],
+        "K_render": K[None, None],
+        "background": torch.zeros((1, 3), device=dev),
+    }

@@ -1,0 +1,232 @@
+"""One-shot hand-avatar model, render path (counterpart of
+``models/one_shot.py``: ``features`` and ``__call__``, eval mode).
+
+  camera feats = MLP(25 -> 768)([K_normed.flat, c2w.flat])
+  pose feats   = MLP(96 -> 768)(two-hand MANO pose)
+  uv           = packed-atlas UVs normalised to [-1, 1]; id_vert = the
+                 identity-code plane sampled at uv                     (33)
+  enc_texture  = LocalPoolPointnet([uv, PE(uv), id_vert])              (53)
+  enc_shade    = LocalPoolPointnet([uv, PE(uv), xyz, PE(xyz), mask,
+                                    pose feats, camera feats])         (1587)
+  tokens       = backbone(tokenizer_texture(enc_texture))
+                 + backbone_shade(tokenizer_shade(enc_shade));
+                 detokenize; upsample; the two planes side by side;
+                 + map_bias                                  -> scene codes
+  additional   = MLPBlock(852 -> 51)([uv, PE(uv), xyz, PE(xyz), mask,
+                                      id_vert, pose feats])
+  hidden       = scene codes sampled at uv (80) ++ additional (51) = 131,
+                 then the interaction self-attention on interacting points
+  render       = GSRenderer: 2N slots, appearance residuals, views
+
+Parameters carry the reference ``state_dict`` names, so
+``compat/from_jax.py`` and a reference checkpoint both load by key. Runs in
+fp32; on the card the caller turns TF32 off (``no_tf32``).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from guassianhand_tpu_torch.nn.heads import AdditionalFeaturesFC
+from guassianhand_tpu_torch.nn.mlp import MLP, init_default_, normal_
+from guassianhand_tpu_torch.nn.pointnet import LocalPoolPointnet
+from guassianhand_tpu_torch.nn.spatial import pe_dim, positional_encoding
+from guassianhand_tpu_torch.nn.tokenizers import (
+    TriplaneLearnablePositionalEmbedding, TriplaneUpsampler)
+from guassianhand_tpu_torch.nn.transformer import Transformer1D
+from guassianhand_tpu_torch.ops.grid_sample import grid_sample_batched
+from guassianhand_tpu_torch.render.renderer import GSRenderer, RendererConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class OneShotConfig:
+    camera_embed_dim: int = 768
+    pose_embed_dim: int = 768
+    pe_levels: int = 4
+    plane_size: int = 32
+    token_channels: int = 512
+    n_plane: int = 2
+    backbone_layers: int = 10
+    backbone_heads: int = 8
+    backbone_head_dim: int = 64
+    scene_code_channels: int = 80
+    identity_channels: int = 33
+    identity_book_size: int = 27
+    residual_map_hw: tuple = (1024, 2048)
+    additional_feature_dim: int = 51
+    # store color_b as the rgb triple the renderer reads (3, Hm, Wm)
+    # instead of the reference's 48 channels; renders are the same
+    narrow_color_b: bool = False
+    renderer: RendererConfig = RendererConfig()
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 matmuls and convolutions in full fp32 on the card. cuDNN runs
+    fp32 convolutions (here the upsampler's ConvTranspose) in TF32 unless
+    told otherwise; the port's parity is stated in fp32."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+class OneShotAvatarModel(nn.Module):
+    def __init__(self, cfg: OneShotConfig = OneShotConfig()):
+        super().__init__()
+        self.cfg = c = cfg
+        s = c.plane_size
+        uv_dim = 2 + pe_dim(2, c.pe_levels)
+        xyz_dim = 3 + pe_dim(3, c.pe_levels)
+        self.camera_embedder = MLP(25, c.camera_embed_dim, c.camera_embed_dim,
+                                   n_hidden_layers=1, activation="silu")
+        self.pose_embedder = MLP(96, c.pose_embed_dim, c.pose_embed_dim,
+                                 n_hidden_layers=1, activation="silu")
+        self.point_encoder_texture = LocalPoolPointnet(
+            uv_dim + c.identity_channels, c_dim=c.token_channels, plane_size=s)
+        self.point_encoder_shade = LocalPoolPointnet(
+            uv_dim + xyz_dim + 1 + c.pose_embed_dim + c.camera_embed_dim,
+            c_dim=c.token_channels, plane_size=s)
+        self.tokenizer_texture = TriplaneLearnablePositionalEmbedding(
+            s, c.token_channels, c.n_plane)
+        self.tokenizer_shade = TriplaneLearnablePositionalEmbedding(
+            s, c.token_channels, c.n_plane)
+        self.backbone = Transformer1D(c.token_channels, c.backbone_layers,
+                                      c.backbone_heads, c.backbone_head_dim)
+        self.backbone_shade = Transformer1D(
+            c.token_channels, c.backbone_layers, c.backbone_heads,
+            c.backbone_head_dim)
+        self.post_processor_texture = TriplaneUpsampler(c.token_channels,
+                                                        c.scene_code_channels)
+        self.additional_features_fc = AdditionalFeaturesFC(
+            uv_dim + xyz_dim + 1 + c.identity_channels + c.pose_embed_dim,
+            c.additional_feature_dim)
+        self.renderer = GSRenderer(c.renderer)
+
+        mh, mw = c.residual_map_hw
+        zeros = torch.zeros
+        self.identity_code_one_shot = nn.Parameter(
+            zeros(1, c.identity_channels, 2 * s, 4 * s))
+        self.identity_code_book = nn.Parameter(
+            zeros(c.identity_book_size, c.identity_channels, 2 * s, 4 * s))
+        self.map_bias = nn.Parameter(zeros(c.scene_code_channels, 2 * s, 4 * s))
+        self.color_w = nn.Parameter(torch.ones(48))
+        self.color_b = nn.Parameter(zeros(3 if c.narrow_color_b else 48, mh, mw))
+        self.xyz_b = nn.Parameter(zeros(3))
+        self.xyz_b_map = nn.Parameter(zeros(3, mh, mw))
+        self.opacity_b = nn.Parameter(zeros(1, mh, mw))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded init with the JAX model's schemes: default layers by
+        fan-in, the tokenizer embeddings, the reference GSLayer heads, the
+        clipped identity code book; the other per-identity maps 0 and
+        color_w 1."""
+        init_default_(self, generator)
+        self.tokenizer_texture.reset_parameters(generator)
+        self.tokenizer_shade.reset_parameters(generator)
+        self.renderer.gs_net.reset_parameters()
+        with torch.no_grad():
+            normal_(self.identity_code_book, 0.02, generator)
+            self.identity_code_book.clamp_(-1.0, 1.0)
+            for p in (self.identity_code_one_shot, self.map_bias, self.color_b,
+                      self.xyz_b, self.xyz_b_map, self.opacity_b):
+                p.zero_()
+            self.color_w.fill_(1.0)
+
+    def scene_codes(self, uv_n, uv_pe, id_vert, tokens_shade):
+        """The (B, C80, 2S, 4S) scene-code plane."""
+        s2 = 2 * self.cfg.plane_size
+        cond_tex = self.point_encoder_texture(
+            torch.cat([uv_n, uv_pe, id_vert], dim=-1))
+        tokens = self.backbone(self.tokenizer_texture(cond_tex)) + tokens_shade
+        planes = self.post_processor_texture(
+            self.tokenizer_texture.detokenize(tokens))
+        codes = torch.cat([planes[:, 0], planes[:, 1]], dim=-1)
+        mb = torch.cat([self.map_bias[..., :s2], self.map_bias[..., :s2]],
+                       dim=-1)
+        return codes + mb[None]
+
+    def features(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The pre-render feature pipeline; ``hidden`` is (B, N, 131)."""
+        c = self.cfg
+        points = batch["points"]
+        b, n, _ = points.shape
+        camera_feats = self.camera_embedder(torch.cat(
+            [batch["intrinsic_normed"].reshape(b, -1),
+             batch["c2w"].reshape(b, -1)], dim=-1))
+        pose_feats = self.pose_embedder(batch["mano_pose"].reshape(b, -1))
+        uv = batch["vert_uv"]
+        uv_n = torch.stack([2.0 * uv[..., 0] - 1.0,
+                            2.0 * (uv[..., 1] / 0.5) - 1.0], dim=-1)
+        uv_pe = positional_encoding(uv_n, c.pe_levels)
+        xyz_pe = positional_encoding(points, c.pe_levels)
+
+        id_plane = self.identity_code_one_shot.expand(
+            b, *self.identity_code_one_shot.shape[1:])
+        id_vert = grid_sample_batched(id_plane, uv_n)          # (B, N, 33)
+
+        inter = batch["inter_mask"].to(torch.float32)[..., None]
+        pose_b = pose_feats[:, None].expand(b, n, pose_feats.shape[-1])
+        cam_b = camera_feats[:, None].expand(b, n, camera_feats.shape[-1])
+        shade_in = torch.cat([uv_n, uv_pe, points, xyz_pe, inter, pose_b,
+                              cam_b], dim=-1)                   # (B, N, 1587)
+        tokens_shade = self.backbone_shade(
+            self.tokenizer_shade(self.point_encoder_shade(shade_in)))
+
+        codes = self.scene_codes(uv_n, uv_pe, id_vert, tokens_shade)
+        additional = self.additional_features_fc(torch.cat(
+            [uv_n, uv_pe, points, xyz_pe, inter, id_vert, pose_b], dim=-1))
+        hidden = torch.cat([grid_sample_batched(codes, uv_n), additional],
+                           dim=-1)                              # (B, N, 131)
+        hidden = self.renderer.self_attn_layer(hidden,
+                                               mask=batch["inter_mask"])
+        return {"hidden": hidden, "codes": codes, "additional": additional,
+                "camera_feats": camera_feats, "pose_feats": pose_feats,
+                "id_vert": id_vert, "uv_n": uv_n, "points": points}
+
+    def forward(self, batch: Dict[str, Any], height: int,
+                width: int) -> Dict[str, Any]:
+        """batch (batched over B): points (B, N, 3), points_tar (optional),
+        vert_uv (B, N, 2), inter_mask (B, N) bool, mano_pose (B, 96),
+        c2w (B, 4, 4), intrinsic_normed (B, 3, 3), w2c_render (B, V, 4, 4),
+        K_render (B, V, 3/4, 3/4), background (B, 3) optional.
+
+        Returns comp_rgb (B, V, H, W, 3), comp_mask (B, V, H, W), hidden,
+        n_pairs (B,), overflow (B,), 3dgs (per-sample list) and points."""
+        points = batch["points"]
+        b = points.shape[0]
+        hidden = self.features(batch)["hidden"]
+        query = batch.get("points_tar", points)
+        background = batch.get("background")
+        outs = [self.renderer(
+            hidden[i], query[i], batch["vert_uv"][i], batch["w2c_render"][i],
+            batch["K_render"][i], height=height, width=width,
+            background=None if background is None else background[i],
+            color_w=self.color_w, xyz_b=self.xyz_b, color_b_map=self.color_b,
+            opacity_b_map=self.opacity_b) for i in range(b)]
+        return {"comp_rgb": torch.stack([o["comp_rgb"] for o in outs]),
+                "comp_mask": torch.stack([o["comp_mask"] for o in outs]),
+                "hidden": hidden,
+                "n_pairs": [o["n_pairs"] for o in outs],
+                "overflow": [o["overflow"] for o in outs],
+                "3dgs": [o["3dgs"] for o in outs],
+                "points": points}
+
+
+def build_model(cfg: OneShotConfig = OneShotConfig(), *, seed: int = 0,
+                device: Optional[str] = None) -> OneShotAvatarModel:
+    """A model in eval mode on ``device`` (default ``cuda``), initialised
+    from ``seed`` with a generator on that device."""
+    device = torch.device(device or "cuda")
+    model = OneShotAvatarModel(cfg).to(device).eval()
+    model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+    return model

@@ -1,0 +1,150 @@
+"""Per-Gaussian decode heads and the interaction attention (counterpart of
+``nn/heads.py``), under the reference's module names.
+
+- ``GSLayer``: linear heads ``out_layers.{0..4}`` for xyz, scaling,
+  rotation, opacity and shs, with the reference activations and init (zero
+  weights; scaling bias -5 -> trunc_exp; rotation bias (1, 0, 0, 0) ->
+  normalize; opacity bias inverse_sigmoid(0.1) -> sigmoid; xyz a
+  sigmoid-bounded offset of +-1.2/32*0.5; rgb sigmoid with ``use_rgb``).
+- ``VertValid`` / ``VertPosRefinement``: ``ff`` (MLPBlock) and ``fc``.
+- ``AdditionalFeaturesFC``: ``ff1`` (MLPBlock).
+- ``SelfAttn``: exact masked attention over the interacting points, 4
+  heads of f // 4; rows outside the mask pass through unchanged.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from guassianhand_tpu_torch.core.gaussians import Gaussians
+from guassianhand_tpu_torch.nn.mlp import LN_EPS, MLPBlock, MLPResBlock
+from guassianhand_tpu_torch.ops.blockwise_attention import blockwise_attention
+
+
+def inverse_sigmoid(x: float) -> float:
+    return math.log(x / (1.0 - x))
+
+
+def trunc_exp(x: torch.Tensor, cap: float = 15.0) -> torch.Tensor:
+    return torch.exp(torch.clamp(x, -cap, cap))
+
+
+class GSLayer(nn.Module):
+    def __init__(self, in_channels: int, sh_degree: int = 3,
+                 use_rgb: bool = True, init_scaling: float = -5.0,
+                 init_density: float = 0.1):
+        super().__init__()
+        self.use_rgb = use_rgb
+        self.sh_k = 1 if use_rgb else (sh_degree + 1) ** 2
+        self.init_scaling = init_scaling
+        self.init_density = init_density
+        self.out_layers = nn.ModuleList([
+            nn.Linear(in_channels, 3), nn.Linear(in_channels, 3),
+            nn.Linear(in_channels, 4), nn.Linear(in_channels, 1),
+            nn.Linear(in_channels, 3 * self.sh_k)])
+
+    def reset_parameters(self) -> None:
+        """The reference init of every head but the rgb one, which keeps
+        the default init."""
+        xyz, scaling, rotation, opacity, shs = self.out_layers
+        biases = [torch.zeros(3), torch.full((3,), self.init_scaling),
+                  torch.tensor([1.0, 0.0, 0.0, 0.0]),
+                  torch.full((1,), inverse_sigmoid(self.init_density))]
+        heads = [xyz, scaling, rotation, opacity]
+        if not self.use_rgb:
+            heads.append(shs)
+            biases.append(torch.zeros(3 * self.sh_k))
+        with torch.no_grad():
+            for head, bias in zip(heads, biases):
+                head.weight.zero_()
+                head.bias.copy_(bias)
+
+    def forward(self, x: torch.Tensor, pts: torch.Tensor) -> Gaussians:
+        """x (N, C) features, pts (N, 3) query points."""
+        xyz_l, scaling_l, rotation_l, opacity_l, shs_l = self.out_layers
+        max_step = 1.2 / 32.0
+        xyz = (torch.sigmoid(xyz_l(x)) - 0.5) * max_step + pts
+        scaling = trunc_exp(scaling_l(x))
+        rotation = rotation_l(x)
+        rotation = rotation / torch.clamp(
+            torch.linalg.norm(rotation, dim=-1, keepdim=True), min=1e-12)
+        opacity = torch.sigmoid(opacity_l(x))
+        shs = shs_l(x)
+        if self.use_rgb:
+            shs = torch.sigmoid(shs)
+        shs = shs.reshape(x.shape[0], self.sh_k, 3)
+        return Gaussians(xyz=xyz, opacity=opacity, rotation=rotation,
+                         scaling=scaling, shs=shs)
+
+
+class VertValid(nn.Module):
+    """Per-point validity score in (0, 1)."""
+
+    def __init__(self, dim_in: int):
+        super().__init__()
+        self.ff = MLPBlock(dim_in, dim_in // 4)
+        self.fc = nn.Linear(dim_in // 4, 1)
+
+    def forward(self, feats, pts):
+        return torch.sigmoid(self.fc(self.ff(torch.cat([feats, pts], -1))))
+
+
+class VertPosRefinement(nn.Module):
+    """Bounded position refinement, tanh * radius around the detached
+    input point."""
+
+    def __init__(self, dim_in: int, radius: float = 0.001):
+        super().__init__()
+        self.radius = radius
+        self.ff = MLPBlock(dim_in, dim_in // 4)
+        self.fc = nn.Linear(dim_in // 4, 3)
+
+    def forward(self, feats, pts):
+        h = self.ff(torch.cat([feats, pts], -1))
+        return pts.detach() + torch.tanh(self.fc(h)) * self.radius
+
+
+class AdditionalFeaturesFC(nn.Module):
+    def __init__(self, dim_in: int, out_dim: int = 51):
+        super().__init__()
+        self.ff1 = MLPBlock(dim_in, out_dim)
+
+    def forward(self, x):
+        return self.ff1(x)
+
+
+class SelfAttn(nn.Module):
+    """Interaction self-attention (eval mode: no dropout)."""
+
+    def __init__(self, dim: int = 131, n_heads: int = 4):
+        super().__init__()
+        d = dim // n_heads
+        self.n_heads = n_heads
+        self.d = d
+        self.layer_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.w_qs = nn.Linear(dim, n_heads * d)
+        self.w_ks = nn.Linear(dim, n_heads * d)
+        self.w_vs = nn.Linear(dim, n_heads * d)
+        self.fc = nn.Linear(n_heads * d, dim)
+        self.ff = MLPResBlock(dim, dim)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, N, F); mask optional (B, N) bool (True = interacting)."""
+        b, n, f = x.shape
+        h = self.layer_norm(x)
+        shape = (b, n, self.n_heads, self.d)
+        q = self.w_qs(h).reshape(shape)
+        k = self.w_ks(h).reshape(shape)
+        v = self.w_vs(h).reshape(shape)
+        o = torch.stack([
+            blockwise_attention(q[i], k[i], v[i],
+                                None if mask is None else mask[i])
+            for i in range(b)])
+        y = self.ff(x + self.fc(o.reshape(b, n, self.n_heads * self.d)))
+        if mask is None:
+            return y
+        return torch.where(mask[..., None], y, x)

@@ -1,0 +1,102 @@
+"""Basic MLP blocks (counterpart of ``nn/mlp.py``), with the reference's
+module names so a reference ``state_dict`` loads by key:
+
+- ``MLP``: ``layers.{0,2,...}`` Linear with activations between;
+- ``MLPBlock``: ``layer_norm`` -> ``fc1`` -> relu -> ``fc2``;
+- ``MLPResBlock``: x + fc2(relu(fc1(layer_norm(x))));
+- ``ResnetBlockFC``: ``fc_0``, ``fc_1`` and a bias-free ``shortcut``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+# flax's LayerNorm epsilon, used by every norm of the JAX model
+LN_EPS = 1e-6
+
+_ACT = {"relu": nn.ReLU, "silu": nn.SiLU}
+
+
+class MLP(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int, n_neurons: int,
+                 n_hidden_layers: int, activation: str = "relu"):
+        super().__init__()
+        layers = [nn.Linear(dim_in, n_neurons), _ACT[activation]()]
+        for _ in range(n_hidden_layers - 1):
+            layers += [nn.Linear(n_neurons, n_neurons), _ACT[activation]()]
+        layers.append(nn.Linear(n_neurons, dim_out))
+        self.layers = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.layers(x)
+
+
+class MLPBlock(nn.Module):
+    def __init__(self, dim_in: int, hid_dim: int):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(dim_in, eps=LN_EPS)
+        self.fc1 = nn.Linear(dim_in, hid_dim)
+        self.fc2 = nn.Linear(hid_dim, hid_dim)
+
+    def forward(self, x):
+        return self.fc2(F.relu(self.fc1(self.layer_norm(x))))
+
+
+class MLPResBlock(nn.Module):
+    def __init__(self, dim: int, hid_dim: int):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.fc1 = nn.Linear(dim, hid_dim)
+        self.fc2 = nn.Linear(hid_dim, dim)
+
+    def forward(self, x):
+        return x + self.fc2(F.relu(self.fc1(self.layer_norm(x))))
+
+
+class ResnetBlockFC(nn.Module):
+    def __init__(self, size_in: int, size_out: Optional[int] = None,
+                 size_h: Optional[int] = None):
+        super().__init__()
+        size_out = size_out or size_in
+        size_h = size_h or min(size_in, size_out)
+        self.fc_0 = nn.Linear(size_in, size_h)
+        self.fc_1 = nn.Linear(size_h, size_out)
+        self.shortcut = (nn.Linear(size_in, size_out, bias=False)
+                         if size_in != size_out else None)
+
+    def forward(self, x):
+        net = self.fc_0(F.relu(x))
+        dx = self.fc_1(F.relu(net))
+        xs = x if self.shortcut is None else self.shortcut(x)
+        return xs + dx
+
+
+def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=generator, device=t.device,
+                            dtype=t.dtype) * std)
+
+
+def init_default_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init with the JAX model's default scales: Linear and
+    ConvTranspose weights normal with std 1/sqrt(fan_in) (flax's
+    lecun_normal scale), biases 0, norms scale 1 and bias 0. Heads with a
+    special init reset themselves after this (see ``nn/heads.py``)."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            normal_(m.weight, 1.0 / math.sqrt(m.in_features), generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.ConvTranspose2d):
+            # flax ConvTranspose fan_in: kh * kw * in_channels
+            kh, kw = m.kernel_size
+            normal_(m.weight, 1.0 / math.sqrt(kh * kw * m.in_channels),
+                    generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)

@@ -1,0 +1,180 @@
+"""3DGS rasterization, forward (counterpart of ``ops/rasterize.py``).
+
+  project (PyTorch)  ->  bin (exact pair enumeration + stable sort)  ->
+  composite (CUDA kernel on the card, ``ops/rasterize_cuda.py``)
+
+The mask render equals ``1 - final_T`` of the same pass. The JAX package's
+static caps (tiles per Gaussian, pair budget, blocks per tile) do not exist
+here: every pair is binned, so ``overflow`` is always 0; the key stays so
+that callers match.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from guassianhand_tpu_torch.core import sh as sh_lib
+from guassianhand_tpu_torch.core.camera import Camera
+from guassianhand_tpu_torch.core.gaussians import Gaussians
+from guassianhand_tpu_torch.ops.binning import bin_gaussians
+from guassianhand_tpu_torch.ops.common import TILE
+from guassianhand_tpu_torch.ops.projection import project_gaussians
+from guassianhand_tpu_torch.ops.rasterize_cuda import (composite_forward,
+                                                       pack_attrs)
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterizeConfig:
+    scale_modifier: float = 1.0
+    znear: float = 0.01
+    zfar: float = 1000.0
+
+
+def _project(gaussians: Gaussians, camera: Camera, config: RasterizeConfig):
+    return project_gaussians(gaussians.xyz, gaussians.scaling,
+                             gaussians.rotation, camera,
+                             scale_modifier=config.scale_modifier,
+                             znear=config.znear, zfar=config.zfar)
+
+
+def _colors(gaussians: Gaussians, camera: Camera, sh_degree: int,
+            use_rgb: bool) -> torch.Tensor:
+    if use_rgb:
+        return gaussians.shs[:, 0, :]
+    dirs = gaussians.xyz - camera.camera_center()[None, :]
+    dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True),
+                              min=1e-9)
+    return sh_lib.eval_sh(sh_degree, gaussians.shs, dirs)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompositeInputs:
+    """What the composite kernel reads: the binned pairs and the packed
+    per-Gaussian rows, for a canvas of height x width pixels."""
+
+    tile_range: torch.Tensor
+    pair_gid: torch.Tensor
+    attrs: torch.Tensor
+    height: int
+    width: int
+
+    def composite(self):
+        """(rgb (H, W, 3), final_t (H, W)) through ``composite_forward``."""
+        return composite_forward(self.tile_range, self.pair_gid, self.attrs,
+                                 height=self.height, width=self.width)
+
+
+def composite_inputs(mean2d, conic, color, opacity, depth, radius, visible,
+                     *, height: int, width: int,
+                     y_band=None) -> CompositeInputs:
+    # the exact opacity cull changes no output and keeps the pair count down
+    bins = bin_gaussians(mean2d, depth, radius, visible, height=height,
+                         width=width, y_band=y_band, opacity=opacity)
+    return CompositeInputs(bins.tile_range, bins.pair_gid,
+                           pack_attrs(mean2d, conic, color, opacity),
+                           height, width)
+
+
+def _background(background, device) -> torch.Tensor:
+    if background is None:
+        return torch.zeros(3, dtype=torch.float32, device=device)
+    return torch.as_tensor(background, dtype=torch.float32, device=device)
+
+
+def rasterize(gaussians: Gaussians, camera: Camera, *, height: int,
+              width: int, background: Optional[torch.Tensor] = None,
+              sh_degree: int = 3, use_rgb: bool = False,
+              config: RasterizeConfig = RasterizeConfig()):
+    """Render one view. Returns comp_rgb (H, W, 3), comp_mask (H, W),
+    final_t (H, W), radii (N,), n_pairs and overflow."""
+    dev = gaussians.xyz.device
+    background = _background(background, dev)
+    opacity = gaussians.effective_opacity()[:, 0]
+    proj = _project(gaussians, camera, config)
+    color = _colors(gaussians, camera, sh_degree, use_rgb)
+    inputs = composite_inputs(
+        proj.mean2d, proj.conic, color, opacity, proj.depth, proj.radius,
+        proj.visible, height=height, width=width)
+    rgb, final_t = inputs.composite()
+    rgb = rgb + final_t[..., None] * background[None, None, :]
+    return {
+        "comp_rgb": rgb,
+        "comp_mask": 1.0 - final_t,
+        "final_t": final_t,
+        "radii": proj.radius,
+        "n_pairs": inputs.pair_gid.shape[0],
+        "overflow": 0,
+    }
+
+
+def render_gaussians(gaussians, w2c, K, *, height, width, **kwargs):
+    """``rasterize`` with the camera built from (w2c, K)."""
+    cam = Camera.from_w2c(w2c, K, height, width, device=gaussians.xyz.device)
+    return rasterize(gaussians, cam, height=height, width=width, **kwargs)
+
+
+def multiview_composite_inputs(gaussians: Gaussians, w2cs: torch.Tensor,
+                               Ks: torch.Tensor, *, height: int, width: int,
+                               sh_degree: int = 3, use_rgb: bool = False,
+                               config: RasterizeConfig = RasterizeConfig()
+                               ) -> CompositeInputs:
+    """The composite inputs of V views stacked vertically on one
+    (V * H_band, W) canvas: bands are tile-row aligned, each view's means
+    are offset by v * H_band and its tile rects clamped to its band."""
+    dev = gaussians.xyz.device
+    v = w2cs.shape[0]
+    nty_band = -(-height // TILE)
+    band_h = nty_band * TILE
+    opacity = gaussians.effective_opacity()[:, 0]
+
+    mean2d, conic, color, depth, radius, visible = [], [], [], [], [], []
+    for i in range(v):
+        cam = Camera.from_w2c(w2cs[i], Ks[i], height, width, device=dev)
+        proj = _project(gaussians, cam, config)
+        mean2d.append(torch.stack([proj.mean2d[:, 0],
+                                   proj.mean2d[:, 1] + float(i * band_h)],
+                                  dim=1))
+        conic.append(proj.conic)
+        color.append(_colors(gaussians, cam, sh_degree, use_rgb))
+        depth.append(proj.depth)
+        radius.append(proj.radius)
+        visible.append(proj.visible)
+    band_lo = torch.repeat_interleave(
+        torch.arange(v, dtype=torch.int32, device=dev) * nty_band,
+        gaussians.n)
+    return composite_inputs(
+        torch.cat(mean2d), torch.cat(conic), torch.cat(color),
+        opacity.repeat(v), torch.cat(depth), torch.cat(radius),
+        torch.cat(visible), height=v * band_h, width=width,
+        y_band=(band_lo, band_lo + nty_band))
+
+
+def rasterize_multiview(gaussians: Gaussians, w2cs: torch.Tensor,
+                        Ks: torch.Tensor, *, height: int, width: int,
+                        background: Optional[torch.Tensor] = None,
+                        sh_degree: int = 3, use_rgb: bool = False,
+                        config: RasterizeConfig = RasterizeConfig()):
+    """Render V views with ONE binning and ONE composite launch over the
+    stacked canvas of ``multiview_composite_inputs``.
+
+    w2cs (V, 4, 4); Ks (V, 3, 3) or (V, 4, 4). Returns comp_rgb
+    (V, H, W, 3), comp_mask / final_t (V, H, W), n_pairs, overflow."""
+    background = _background(background, gaussians.xyz.device)
+    v = w2cs.shape[0]
+    inputs = multiview_composite_inputs(
+        gaussians, w2cs, Ks, height=height, width=width, sh_degree=sh_degree,
+        use_rgb=use_rgb, config=config)
+    rgb, final_t = inputs.composite()
+    band_h = inputs.height // v
+    rgb = rgb + final_t[..., None] * background[None, None, :]
+    rgb = rgb.reshape(v, band_h, width, 3)[:, :height]
+    final_t = final_t.reshape(v, band_h, width)[:, :height]
+    return {
+        "comp_rgb": rgb,
+        "comp_mask": 1.0 - final_t,
+        "final_t": final_t,
+        "n_pairs": inputs.pair_gid.shape[0],
+        "overflow": 0,
+    }

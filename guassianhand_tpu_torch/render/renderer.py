@@ -1,0 +1,120 @@
+"""Gaussian renderer head (counterpart of ``render/renderer.py``):
+validity and duplication into 2N static slots, the UV appearance residuals,
+and the multi-view render.
+
+- validity: slot i < N keeps point i when its score > threshold_low; slot
+  N + i holds its refined duplicate when the score > threshold_high;
+  invalid slots stay in place with opacity 0;
+- appearance: ``color_w`` gain/bias, the ``color_b`` map sampled at the
+  Gaussians' UVs (only its first rgb triple is read, so the 48-channel and
+  the narrow 3-channel layouts give the same result), ``opacity_b`` and
+  ``xyz_b``;
+- views: one stacked multi-view raster, one binning and one composite
+  launch for all views.
+
+The interaction attention ``self_attn_layer`` lives here, as in the
+reference module tree; the model calls it before rendering.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from guassianhand_tpu_torch.core.gaussians import Gaussians
+from guassianhand_tpu_torch.mano.uv import normalize_uv
+from guassianhand_tpu_torch.nn.heads import (GSLayer, SelfAttn, VertPosRefinement,
+                                             VertValid)
+from guassianhand_tpu_torch.nn.mlp import MLP
+from guassianhand_tpu_torch.ops.grid_sample import grid_sample_2d
+from guassianhand_tpu_torch.ops.rasterize import (RasterizeConfig,
+                                                  rasterize_multiview)
+
+
+@dataclasses.dataclass(frozen=True)
+class RendererConfig:
+    hidden_dim: int = 128
+    feature_dim: int = 131       # 80 scene-code + 51 additional channels
+    threshold_low: float = 0.1
+    threshold_high: float = 0.9
+    sh_degree: int = 3
+    use_rgb: bool = True
+    raster: RasterizeConfig = RasterizeConfig()
+
+
+class GSRenderer(nn.Module):
+    def __init__(self, cfg: RendererConfig = RendererConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.mlp_net = MLP(cfg.feature_dim, cfg.hidden_dim, cfg.hidden_dim,
+                           n_hidden_layers=2, activation="silu")
+        self.gs_net = GSLayer(cfg.hidden_dim, sh_degree=cfg.sh_degree,
+                              use_rgb=cfg.use_rgb)
+        self.gs_valid = VertValid(cfg.feature_dim + 3)
+        self.vert_pos_refinement = VertPosRefinement(cfg.feature_dim + 3)
+        self.self_attn_layer = SelfAttn(cfg.feature_dim)
+
+    def build_gaussians(self, features: torch.Tensor, points: torch.Tensor,
+                        vert_uv: torch.Tensor):
+        """features (N, C), points (N, 3), vert_uv (N, 2) packed-atlas UVs.
+        Returns (Gaussians with 2N slots and validity, uv (2N, 2)); the
+        duplicates reuse their parent's UV (the refinement moves a point by
+        at most 1e-3, below one texel)."""
+        score = self.gs_valid(features, points)[:, 0]
+        keep = score > self.cfg.threshold_low
+        dup = score > self.cfg.threshold_high
+        refined = self.vert_pos_refinement(features, points)
+
+        gs = self.gs_net(self.mlp_net(torch.cat([features, features], 0)),
+                         torch.cat([points, refined], 0))
+        valid = torch.cat([keep, dup], 0).to(torch.float32)
+        gs = dataclasses.replace(gs, valid=valid)
+        return gs, torch.cat([vert_uv, vert_uv], 0)
+
+    @staticmethod
+    def apply_appearance(gs: Gaussians, uv: torch.Tensor,
+                         color_w: Optional[torch.Tensor],
+                         xyz_b: Optional[torch.Tensor],
+                         color_b_map: Optional[torch.Tensor],
+                         opacity_b_map: Optional[torch.Tensor]) -> Gaussians:
+        """color_w (48,): the first two rgb triples are gain and bias;
+        color_b_map (48 or 3, Hm, Wm); opacity_b_map (1, Hm, Wm); xyz_b (3,)."""
+        uvn = normalize_uv(uv)
+        rgb = gs.shs[:, 0, :]
+        if color_w is not None:
+            cw = color_w.reshape(16, 3)
+            rgb = rgb * cw[0][None] + cw[1][None] - 1.0
+        if color_b_map is not None:
+            rgb = rgb + grid_sample_2d(color_b_map[:3], uvn)
+        opacity = gs.opacity
+        if opacity_b_map is not None:
+            opacity = opacity + grid_sample_2d(opacity_b_map, uvn)
+        xyz = gs.xyz if xyz_b is None else gs.xyz + xyz_b[None, :]
+        return Gaussians(xyz=xyz, opacity=opacity, rotation=gs.rotation,
+                         scaling=gs.scaling, shs=rgb[:, None, :],
+                         valid=gs.valid)
+
+    def render_views(self, gs: Gaussians, w2cs: torch.Tensor, Ks: torch.Tensor,
+                     height: int, width: int,
+                     background: Optional[torch.Tensor] = None):
+        """w2cs (V, 4, 4), Ks (V, 3/4, 3/4) -> comp_rgb (V, H, W, 3),
+        comp_mask (V, H, W), n_pairs, overflow."""
+        cfg = self.cfg
+        out = rasterize_multiview(
+            gs, w2cs, Ks, height=height, width=width, background=background,
+            sh_degree=cfg.sh_degree, use_rgb=cfg.use_rgb, config=cfg.raster)
+        return {k: out[k] for k in ("comp_rgb", "comp_mask", "n_pairs",
+                                    "overflow")}
+
+    def forward(self, features, points, vert_uv, w2cs, Ks, *, height: int,
+                width: int, background=None, color_w=None, xyz_b=None,
+                color_b_map=None, opacity_b_map=None):
+        """One sample; the model loops over its batch."""
+        gs, uv = self.build_gaussians(features, points, vert_uv)
+        gs = self.apply_appearance(gs, uv, color_w, xyz_b, color_b_map,
+                                   opacity_b_map)
+        out = self.render_views(gs, w2cs, Ks, height, width, background)
+        out["3dgs"] = gs
+        return out

@@ -1,0 +1,45 @@
+"""Frame export (counterpart of ``utils/saving.py``'s image and
+frame-sequence writers). PNGs are written with the standard library's
+``zlib``, so the port needs no imaging package."""
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+from typing import Iterable
+
+import numpy as np
+
+
+def to_uint8(img) -> np.ndarray:
+    """Float [0, 1] (or uint8) HxW or HxWx3 -> uint8 HxWx3."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0.0, 1.0) * 255.0).round().astype(np.uint8)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    return img
+
+
+def save_image(path: str, img) -> str:
+    """8-bit RGB PNG."""
+    rgb = to_uint8(img)
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(png)
+    return path
+
+
+def save_video_frames(dirname: str, frames: Iterable) -> list:
+    return [save_image(os.path.join(dirname, f"{i:04d}.png"), f)
+            for i, f in enumerate(frames)]
