@@ -5,19 +5,32 @@
 
 Phases, each reported on its own line:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: the render path's CUDA kernel compiled from csrc/ with nvcc
-     for sm_90a;
-  3. kernel vs plain: each kernel held against its plain PyTorch twin on
-     the card at the bench scene (49,152 random Gaussians, 512^2), at edge
+  2. build: the three CUDA kernels (composite forward and backward, sorted-
+     segment sum) compiled from csrc/ with nvcc for sm_90a, one nvcc each,
+     all at once, with ptxas' registers and spills;
+  3. kernel vs plain: the forward kernel held against its plain PyTorch
+     twin at the bench scene (49,152 random Gaussians, 512^2), at edge
      cases the main path does not reach (odd image sizes, stacked views,
      tiles of more than 256 pairs, transparent and empty tiles) and at the
-     avatar's own Gaussians, tolerance atol 2e-5 + rtol 1e-4 * |ref|; kernel
-     and twin timed with CUDA events;
-  4. the slice: the full-width one-shot avatar model (seeded weights)
-     serves R = 4 requests, each one pose rendered in V = 4 orbit views at
-     256^2; kernel launch counts are zeroed just before and read just after;
-  5. reference: a small model rendered on the card and on the CPU with the
-     same weights must agree.
+     avatar's own Gaussians, atol 2e-5 + rtol 1e-4 * |ref|;
+  4. grad vs plain: the forward's training mode, the backward and the
+     segment sum against their twins at the bench scene, the edge cases and
+     the fit's own Gaussians, with bench.py's loss: per-Gaussian gradients
+     of mean2d, conic, opacity and colour within atol 2e-4 * scale + rtol
+     2e-3, n_contrib exact, training mode's rgb and final T bit-identical
+     to render mode's;
+  5. raster fwd+bwd: bench.py::main's step (project, bin, composite forward
+     and backward at the bench scene), ms per step and rays/s;
+  6. the serving slice: the full-width one-shot avatar model (seeded
+     weights) serves R = 4 requests, each one pose in V = 4 orbit views at
+     256^2;
+  7. the fit slice: the full-width model fits its per-identity parameters
+     to the synthetic target (15,404 points, 256^2, Adam, vgg 0.1, fp32),
+     one warm-up step and then 10 steps;
+  8. reference: a small model rendered, and fitted for 2 steps, on the card
+     and on the CPU with the same weights must agree.
+Kernel launch counts are zeroed just before each slice and read just after;
+kernels and twins are timed with CUDA events.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Any failure raises: exit code != 0
@@ -31,6 +44,8 @@ import subprocess
 import sys
 import time
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -38,7 +53,18 @@ import torch
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 ATOL, RTOL = 2e-5, 1e-4
+# gradient tolerance: atol GRAD_ATOL * (max |twin gradient| of the array)
+# + GRAD_RTOL * |twin gradient|, as tests/test_rasterize.py holds gradients
+GRAD_ATOL, GRAD_RTOL = 2e-4, 2e-3
+PARAM_ATOL = 1e-4   # card vs CPU, trainable parameters after 2 fit steps
 REQUESTS, VIEWS, HW = 4, 4, 256
+RASTER_STEPS = 20
+FIT_STEPS = 10
+SPIN_CYCLES = 50_000_000   # 25-30 ms of device time at H100 clocks
+REPO = Path(__file__).resolve().parent
+# per-Gaussian gradient arrays in the packed attribute row
+GRAD_ARRAYS = (("mean2d", slice(0, 2)), ("conic", slice(2, 5)),
+               ("opacity", slice(5, 6)), ("color", slice(6, 9)))
 
 
 def log(phase: str, **kv) -> None:
@@ -46,10 +72,13 @@ def log(phase: str, **kv) -> None:
 
 
 def time_cuda(fn, reps: int, warmup: int = 2) -> float:
-    """Mean ms per call over ``reps`` calls, CUDA events, after warm-up."""
+    """Mean ms per call over ``reps`` calls, CUDA events, after warm-up. The
+    device first spins for a while, so the host enqueues the calls ahead of
+    it and a short kernel's time is not its launch overhead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -77,13 +106,19 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    from guassianhand_tpu_torch.ops import rasterize_cuda
+    """Every kernel of the port, one nvcc per source, all started together."""
+    from guassianhand_tpu_torch.ops import rasterize_cuda, segreduce_cuda
+    from guassianhand_tpu_torch.ops.cuda_build import build_all
+    libs = [rasterize_cuda.FORWARD_LIB, rasterize_cuda.BACKWARD_LIB,
+            segreduce_cuda.LIB]
     t0 = time.perf_counter()
-    text = rasterize_cuda.build_library()
-    ptxas = [ln.strip() for ln in text.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", kernel="composite_forward", ptxas=ptxas,
-        seconds=time.perf_counter() - t0)
+    texts = build_all(libs)
+    seconds = time.perf_counter() - t0
+    for lib in libs:
+        ptxas = [ln.strip() for ln in texts[lib.name].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log("build", source=str(lib.source.relative_to(REPO)), ptxas=ptxas,
+            seconds_all=seconds)
 
 
 def scene_inputs(n: int, height: int, width: int, *, views: int = 1,
@@ -130,6 +165,15 @@ def scene_inputs(n: int, height: int, width: int, *, views: int = 1,
         gs, torch.as_tensor(w2cs, device="cuda"),
         torch.as_tensor(np.stack([K] * views), device="cuda"), height=height,
         width=width, use_rgb=True)
+
+
+def reference_config():
+    """The small model of the card-against-CPU phases."""
+    from guassianhand_tpu_torch.models.one_shot import OneShotConfig
+    return OneShotConfig(camera_embed_dim=64, pose_embed_dim=64, plane_size=8,
+                         token_channels=64, backbone_layers=1,
+                         backbone_heads=2, backbone_head_dim=16,
+                         residual_map_hw=(64, 128))
 
 
 # The kernel's edge cases at small shapes, each held against the twin:
@@ -217,6 +261,209 @@ def check_composite(label: str, inputs, reps: int = 20) -> dict:
     return row
 
 
+def bench_loss(rgb, final_t, target):
+    """bench.py::main's loss: |rgb - target|.mean() + (mask^2).mean()."""
+    return (rgb - target).abs().mean() + ((1.0 - final_t) ** 2).mean()
+
+
+def grads_agree(got, want) -> dict:
+    """Per-array max error and count over the gradient tolerance."""
+    out = {}
+    for name, cols in GRAD_ARRAYS:
+        g, w = got[:, cols], want[:, cols]
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        diff = (g - w).abs()
+        out[name] = {"scale": scale,
+                     "max_abs_err": float(diff.max()) if w.numel() else 0.0,
+                     "over_tol": int((diff > GRAD_ATOL * scale
+                                      + GRAD_RTOL * w.abs()).sum())}
+    return out
+
+
+def check_gradients(label: str, inputs, reps: int = 20) -> dict:
+    """K1's training mode, K2 and K3 against their twins on the card, with
+    bench.py::main's loss over a seeded target. Raises on disagreement.
+
+    The kernel chain is the autograd path ``ops/rasterize.Composite`` (K1
+    training mode, K2, K3); the twin chain runs the three plain twins. Their
+    per-Gaussian gradients of mean2d, conic, opacity and colour must agree
+    within GRAD_ATOL * scale + GRAD_RTOL; K1's training mode must give the
+    render mode's rgb and final T to the bit and the twin's n_contrib
+    exactly; K3 alone is held to its twin on the kernel's own pair rows."""
+    from guassianhand_tpu_torch.ops import rasterize_cuda as rc
+    from guassianhand_tpu_torch.ops import segreduce_cuda as sr
+    from guassianhand_tpu_torch.ops.rasterize import Composite
+    h, w = inputs.height, inputs.width
+    tr, gid = inputs.tile_range, inputs.pair_gid
+    attrs = inputs.attrs.detach().contiguous()
+    n, n_pairs = attrs.shape[0], gid.shape[0]
+    kw = {"height": h, "width": w}
+    target = torch.as_tensor(np.random.RandomState(1).uniform(
+        0, 1, (h, w, 3)).astype(np.float32), device="cuda")
+    before = (rc.composite_forward.launches, rc.composite_backward.launches,
+              sr.segment_reduce_sorted.launches)
+
+    # K1, training mode
+    rgb_r, t_r = rc.composite_forward(tr, gid, attrs, **kw)
+    rgb_k, t_k, nc_k = rc.composite_forward(tr, gid, attrs, **kw,
+                                            store_contrib=True)
+    rgb_p, t_p, nc_p = rc.composite_plain(tr, gid, attrs, **kw,
+                                          store_contrib=True)
+    bit_identical = bool(torch.equal(rgb_r, rgb_k) and torch.equal(t_r, t_k))
+    contrib_mismatch = int((nc_k != nc_p).sum())
+
+    # the cotangents of the bench loss at the twin's own forward
+    rgb_g = rgb_p.clone().requires_grad_()
+    t_g = t_p.clone().requires_grad_()
+    g_rgb, g_t = torch.autograd.grad(bench_loss(rgb_g, t_g, target),
+                                     [rgb_g, t_g])
+    order = torch.argsort(gid, stable=True)
+    ids = gid[order]
+    pair_p, ops = rc.composite_backward_plain(tr, gid, attrs, g_rgb, g_t,
+                                              t_p, nc_p, **kw,
+                                              count_ops=True)
+    twin = sr.segment_reduce_plain(ids, pair_p[:, order].contiguous(), n)
+
+    # the kernel chain, through autograd
+    a = attrs.clone().requires_grad_()
+    rgb, final_t = Composite.apply(a, tr, gid, h, w)
+    (kernel,) = torch.autograd.grad(bench_loss(rgb, final_t, target), [a])
+    torch.cuda.synchronize()
+    agree = grads_agree(kernel, twin)
+
+    # each kernel alone, on the same inputs as its twin
+    pair_k = rc.composite_backward(tr, gid, attrs, g_rgb, g_t, t_p, nc_p,
+                                   **kw)
+    vals = pair_k[:, order].contiguous()
+    seg_k = sr.segment_reduce_sorted(ids, vals, n)
+    seg_p = sr.segment_reduce_plain(ids, vals, n)
+    pair_err = float((pair_k - pair_p).abs().max()) if n_pairs else 0.0
+    seg_agree = grads_agree(seg_k, seg_p)
+    launches = [rc.composite_forward.launches - before[0],
+                rc.composite_backward.launches - before[1],
+                sr.segment_reduce_sorted.launches - before[2]]
+
+    def library():
+        return torch.zeros((n, 9), device="cuda").index_add_(
+            0, ids.to(torch.int64), vals.T)
+    lib_err = float((library() - seg_p).abs().max()) if n else 0.0
+    render_ms = time_cuda(lambda: rc.composite_forward(tr, gid, attrs, **kw),
+                          reps=reps)
+    fwd_ms = time_cuda(lambda: rc.composite_forward(
+        tr, gid, attrs, **kw, store_contrib=True), reps=reps)
+    fwd_plain_ms = time_cuda(lambda: rc.composite_plain(
+        tr, gid, attrs, **kw, store_contrib=True), reps=2, warmup=1)
+    bwd_ms = time_cuda(lambda: rc.composite_backward(
+        tr, gid, attrs, g_rgb, g_t, t_p, nc_p, **kw), reps=reps)
+    bwd_plain_ms = time_cuda(lambda: rc.composite_backward_plain(
+        tr, gid, attrs, g_rgb, g_t, t_p, nc_p, **kw), reps=2, warmup=1)
+    seg_ms = time_cuda(lambda: sr.segment_reduce_sorted(ids, vals, n),
+                       reps=reps)
+    seg_plain_ms = time_cuda(lambda: sr.segment_reduce_plain(ids, vals, n),
+                             reps=2, warmup=1)
+    seg_library_ms = time_cuda(library, reps=reps)
+
+    n_tiles = tr.numel() - 1
+    bwd_ops = int(ops.sum())
+    bwd_bytes = (4 * (n_tiles + 1) + 4 * n_pairs + 4 * attrs.numel()
+                 + 24 * h * w + 4 * 9 * n_pairs)
+    seg_bytes = 4 * n_pairs + 4 * vals.numel() + 4 * 9 * n
+    seg_ops = vals.numel()
+
+    def bound(n_bytes, n_ops):
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    row = {"scene": label, "canvas": [h, w], "gaussians": n,
+           "n_pairs": n_pairs,
+           "training_mode_bit_identical": bit_identical,
+           "n_contrib_mismatch": contrib_mismatch,
+           "n_contrib_max": int(nc_p.max()) if nc_p.numel() else 0,
+           "gradients": agree, "pair_rows_max_abs_err": pair_err,
+           "segment_reduce": seg_agree, "index_add_max_abs_err": lib_err,
+           "check_launches": launches,
+           "k1_render_ms": render_ms,
+           "k1_train_ms": fwd_ms, "k1_train_plain_ms": fwd_plain_ms,
+           "k2_ms": bwd_ms, "k2_plain_ms": bwd_plain_ms,
+           "k2_fp32_ops": bwd_ops, "k2_bytes": bwd_bytes,
+           **{f"k2_{k}": v for k, v in bound(bwd_bytes, bwd_ops).items()},
+           "k3_ms": seg_ms, "k3_plain_ms": seg_plain_ms,
+           "k3_library_ms": seg_library_ms, "k3_bytes": seg_bytes,
+           **{f"k3_{k}": v for k, v in bound(seg_bytes, seg_ops).items()}}
+    log("grad_vs_plain", **row)
+    bad = [f"{k}: {v['over_tol']} over tolerance"
+           for part in (agree, seg_agree) for k, v in part.items()
+           if v["over_tol"]]
+    if not bit_identical:
+        bad.append("training mode changed rgb or final T")
+    if contrib_mismatch:
+        bad.append(f"n_contrib differs from the twin's at "
+                   f"{contrib_mismatch} pixels")
+    if bad:
+        raise AssertionError(f"gradient kernels disagree with their twins "
+                             f"at {label}: {'; '.join(bad)}")
+    return row
+
+
+def phase_edge_gradients() -> None:
+    for label, kwargs, _ in EDGE_SCENES:
+        check_gradients(label, scene_inputs(**kwargs), reps=2)
+
+
+def phase_raster_fwd_bwd() -> dict:
+    """bench.py::main's step on the card: project, bin, composite forward
+    and backward at the bench scene, with the gradients of xyz, scaling,
+    rotation, opacity and colour; ms per step and rays/s."""
+    from guassianhand_tpu_torch.core.camera import Camera
+    from guassianhand_tpu_torch.core.gaussians import Gaussians
+    from guassianhand_tpu_torch.ops.rasterize import rasterize
+    hw, n = 512, 49152
+    rng = np.random.RandomState(0)
+    xyz = rng.uniform(-0.5, 0.5, (n, 3))
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    arrays = {"xyz": xyz, "rotation": q,
+              "opacity": rng.uniform(0.3, 0.9, (n, 1)),
+              "scaling": rng.uniform(0.002, 0.01, (n, 3)),
+              "shs": rng.uniform(0, 1, (n, 1, 3))}
+    leaves = {k: torch.as_tensor(v.astype(np.float32), device="cuda")
+              .requires_grad_() for k, v in arrays.items()}
+    f = 1.1 * hw
+    K = np.array([[f, 0, hw / 2], [0, f, hw / 2], [0, 0, 1]], np.float32)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[2, 3] = 1.8
+    cam = Camera.from_w2c(w2c, K, hw, hw, device="cuda")
+    target = torch.as_tensor(rng.uniform(0, 1, (hw, hw, 3)).astype(
+        np.float32), device="cuda")
+
+    def step():
+        out = rasterize(Gaussians(**leaves), cam, height=hw, width=hw,
+                        use_rgb=True)
+        loss = bench_loss(out["comp_rgb"], out["final_t"], target)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return out["n_pairs"], grads
+
+    n_pairs, grads = step()
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    t0 = time.perf_counter()
+    for _ in range(RASTER_STEPS):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / RASTER_STEPS
+    row = {"canvas": [hw, hw], "gaussians": n, "n_pairs": n_pairs,
+           "steps": RASTER_STEPS, "ms_per_step": ms,
+           "rays_per_s": hw * hw / (ms * 1e-3), "grads_finite": finite,
+           "grad_abs_max": {k: float(g.abs().max())
+                            for k, g in zip(leaves, grads)}}
+    log("raster_fwd_bwd", **row)
+    if not finite:
+        raise AssertionError("raster fwd+bwd gave non-finite gradients")
+    return row
+
+
 def phase_slice():
     """R requests of V views of the full-width avatar; returns the last
     request's composite inputs (the avatar's projected Gaussians) and the
@@ -253,9 +500,9 @@ def phase_slice():
 
     request(1000)                                  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    rc.composite_forward.launches = 0
+    zero_launches()
     results = [request(r) for r in range(REQUESTS)]
-    launches = rc.composite_forward.launches
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     rows = []
     for r, (batch, out, batch_ms, model_ms) in enumerate(results):
@@ -277,10 +524,13 @@ def phase_slice():
     log("slice", requests=REQUESTS, views=VIEWS,
         model_ms=[x["model_ms"] for x in rows],
         model_ms_mean=float(np.mean([x["model_ms"] for x in rows])),
-        composite_forward_launches=launches, peak_bytes=peak)
-    if launches == 0:
+        launches=launches, peak_bytes=peak)
+    if launches["composite_forward"] == 0:
         raise AssertionError("the slice ran without launching "
                              "composite_forward")
+    if launches["composite_backward"] or launches["segment_reduce_sorted"]:
+        raise AssertionError(f"rendering launched a backward kernel: "
+                             f"{launches}")
     batch, out = results[-1][0], results[-1][1]
     phase_profile(lambda: request(REQUESTS),
                   lambda: model.features(batch), rows)
@@ -290,28 +540,36 @@ def phase_slice():
         gs, batch["w2c_render"][0], batch["K_render"][0], height=HW,
         width=HW, sh_degree=rcfg.sh_degree, use_rgb=rcfg.use_rgb,
         config=rcfg.raster)
-    return inputs, launches
+    return inputs, launches["composite_forward"]
 
 
 def _device_us(event) -> float:
     return float(event.self_device_time_total)
 
 
-def phase_profile(run_request, run_features, rows) -> None:
-    """Where a request's time goes: one request under torch.profiler (the
-    kernels' device time by name, and the device's busy share of the
-    unprofiled request time), and the feature pipeline timed alone."""
+def device_profile(fn):
+    """Run ``fn`` once under torch.profiler: (device busy ms, the top
+    kernels as [name, ms, count])."""
     from torch.profiler import ProfilerActivity, profile
-    from guassianhand_tpu_torch.models.one_shot import no_tf32
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_request()
+        fn()
+        torch.cuda.synchronize()
     # kernel rows only: an operator's row repeats its kernels' device time
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and _device_us(e) > 0]
-    busy_ms = sum(_device_us(e) for e in events) / 1e3
     top = sorted(events, key=_device_us, reverse=True)[:12]
+    return (sum(_device_us(e) for e in events) / 1e3,
+            [[e.key[:60], _device_us(e) / 1e3, e.count] for e in top])
+
+
+def phase_profile(run_request, run_features, rows) -> None:
+    """Where a request's time goes: one request under torch.profiler (the
+    kernels' device time by name, and the device's busy share of the
+    unprofiled request time), and the feature pipeline timed alone."""
+    from guassianhand_tpu_torch.models.one_shot import no_tf32
+    busy_ms, top = device_profile(run_request)
     request_ms = float(np.mean([r["batch_ms"] + r["model_ms"] for r in rows]))
     with torch.inference_mode(), no_tf32():
         features_ms = time_cuda(run_features, reps=3, warmup=1)
@@ -320,8 +578,158 @@ def phase_profile(run_request, run_features, rows) -> None:
         features_ms=features_ms,
         model_ms_mean=float(np.mean([r["model_ms"] for r in rows])),
         batch_ms_mean=float(np.mean([r["batch_ms"] for r in rows])),
-        top_device_ms=[[e.key[:60], _device_us(e) / 1e3, e.count]
-                       for e in top])
+        top_device_ms=top)
+
+
+def zero_launches() -> None:
+    for wrapper in launch_counters().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in launch_counters().items()}
+
+
+def launch_counters() -> dict:
+    from guassianhand_tpu_torch.ops import rasterize_cuda as rc
+    from guassianhand_tpu_torch.ops import segreduce_cuda as sr
+    return {"composite_forward": rc.composite_forward,
+            "composite_backward": rc.composite_backward,
+            "segment_reduce_sorted": sr.segment_reduce_sorted}
+
+
+def fit_model_and_step(cfg, hw: int, batch, device: str):
+    """A seeded model of ``cfg`` on ``device``, its Adam and fit step with
+    bench_fit_step's FitConfig (vgg 0.1, the frozen base, the static prefix
+    cache attached to ``batch``)."""
+    from guassianhand_tpu_torch.models.one_shot import build_model
+    from guassianhand_tpu_torch.train.fit import (FitConfig,
+                                                  attach_static_features,
+                                                  make_fit_step,
+                                                  make_optimizer)
+    from guassianhand_tpu_torch.train.losses import LossWeights
+    from guassianhand_tpu_torch.train.vgg import VGGLoss
+    fit_cfg = FitConfig(weights=LossWeights(vgg=0.1))
+    model = build_model(cfg, seed=0, device="cuda").to(device)
+    optimizer, scheduler = make_optimizer(model, fit_cfg)
+    step = make_fit_step(model, VGGLoss().to(device), optimizer, scheduler,
+                         fit_cfg, height=hw, width=hw)
+    return model, step, attach_static_features(model, batch), fit_cfg
+
+
+def phase_fit():
+    """The slice: the full-width one-shot fit at bench_fit_step's workload
+    (778-vertex hands subdivided twice, 15,404 points, 256^2, vgg 0.1,
+    fp32). One warm-up step, then FIT_STEPS steps with the launch counts
+    zeroed just before and read just after. Returns the fit's own composite
+    inputs (the fitted avatar's Gaussians in the fit view) and the
+    launches."""
+    from guassianhand_tpu_torch.cli.render_360 import MODEL_CONFIG
+    from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
+                                                       synthetic_batch)
+    from guassianhand_tpu_torch.models.one_shot import no_tf32
+    from guassianhand_tpu_torch.ops.rasterize import multiview_composite_inputs
+    from guassianhand_tpu_torch.train.fit import trainable_mask
+    t0 = time.perf_counter()
+    scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
+                                     width=HW, device="cuda")
+    batch = synthetic_batch(scene, seed=0, with_target=True)
+    model, step, batch, fit_cfg = fit_model_and_step(MODEL_CONFIG, HW, batch,
+                                                     "cuda")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainable = trainable_mask(model)
+    torch.cuda.synchronize()
+    log("fit_setup", seconds=time.perf_counter() - t0,
+        n_points=scene.n_points, gaussian_slots=2 * scene.n_points,
+        target_mask_mean=float(batch["target_mask"].mean()),
+        trainable=sorted(n for n, t in trainable.items() if t),
+        trainable_params=sum(p.numel() for n, p in model.named_parameters()
+                             if trainable[n]),
+        params=sum(p.numel() for p in model.parameters()))
+    step(batch)                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    rows = []
+    for i in range(FIT_STEPS):
+        t = time.perf_counter()
+        counts = read_launches()
+        loss, err = step(batch)
+        torch.cuda.synchronize()
+        row = {"step": i, "ms": (time.perf_counter() - t) * 1e3,
+               "loss": float(loss), **{k: float(v) for k, v in err.items()},
+               "launches": {k: v - counts[k]
+                            for k, v in read_launches().items()}}
+        log("fit_step", **row)
+        rows.append(row)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    frozen_changed = [n for n, p in model.named_parameters()
+                      if not trainable[n] and not torch.equal(p, before[n])]
+    moved = sorted(n for n, p in model.named_parameters()
+                   if trainable[n] and not torch.equal(p, before[n]))
+    busy_ms, top = device_profile(lambda: step(batch))
+    ms = [r["ms"] for r in rows]
+    log("fit", steps=FIT_STEPS, ms_per_step=ms,
+        ms_per_step_mean=float(np.mean(ms)),
+        device_busy_ms_profiled_step=busy_ms,
+        device_busy_share=busy_ms / float(np.mean(ms)), top_device_ms=top,
+        losses=[r["loss"] for r in rows], launches=launches, peak_bytes=peak,
+        moved=moved, frozen_changed=frozen_changed)
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError("the fit gave a non-finite loss")
+    if frozen_changed:
+        raise AssertionError(f"frozen parameters changed: {frozen_changed}")
+    want_moved = {"identity_code_one_shot", "map_bias", "color_w", "color_b",
+                  "opacity_b"}
+    if not want_moved <= set(moved):
+        raise AssertionError(f"trainable maps that did not move: "
+                             f"{sorted(want_moved - set(moved))}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the fit skipped a kernel: {launches}")
+    with torch.no_grad(), no_tf32():
+        gs = model(batch, HW, HW)["3dgs"][0]
+    rcfg = MODEL_CONFIG.renderer
+    inputs = multiview_composite_inputs(
+        gs, batch["w2c_render"][0], batch["K_render"][0], height=HW,
+        width=HW, sh_degree=rcfg.sh_degree, use_rgb=rcfg.use_rgb,
+        config=rcfg.raster)
+    return inputs, launches, rows
+
+
+def phase_fit_reference() -> None:
+    """Two fit steps of a small model with the same weights on the card and
+    on the CPU. Losses agree within rtol 1e-4 and every updated trainable
+    parameter within PARAM_ATOL: a step moves an element by about lr = 1e-2,
+    so a bound 100 times below that catches a step that went astray, and
+    it is 6 times the largest difference seen on an H100 (1.6e-5)."""
+    from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
+                                                       synthetic_batch)
+    from guassianhand_tpu_torch.train.fit import trainable_mask
+    hw = 64
+    # one batch, made on the CPU (see phase_reference)
+    scene = SyntheticHandScene.build(n_vertices=96, subdivide=1, height=hw,
+                                     width=hw, device="cpu")
+    batch = synthetic_batch(scene, seed=0, with_target=True)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model, step, b, _ = fit_model_and_step(
+            reference_config(), hw, {k: v.to(device) for k, v in batch.items()},
+            device)
+        losses = [float(step(b)[0]) for _ in range(2)]
+        runs[device] = (losses, {n: p.detach().cpu() for n, p in
+                                 model.named_parameters()
+                                 if trainable_mask(model)[n]})
+    (loss_c, par_c), (loss_p, par_p) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_c, loss_p))
+    params = {n: float((par_c[n] - par_p[n]).abs().max()) for n in par_p}
+    log("fit_reference", losses_cuda=loss_c, losses_cpu=loss_p,
+        loss_max_rel=loss_rel, params_max_abs=params, bound=PARAM_ATOL)
+    if loss_rel > 1e-4:
+        raise AssertionError(f"card and CPU fit losses disagree: {loss_rel}")
+    bad = [n for n, v in params.items() if v > PARAM_ATOL]
+    if bad:
+        raise AssertionError(f"card and CPU fits disagree in {bad}")
 
 
 def phase_reference() -> None:
@@ -331,12 +739,8 @@ def phase_reference() -> None:
                                                        render_request)
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                        synthetic_batch)
-    from guassianhand_tpu_torch.models.one_shot import (OneShotConfig,
-                                                        build_model)
-    cfg = OneShotConfig(camera_embed_dim=64, pose_embed_dim=64, plane_size=8,
-                        token_channels=64, backbone_layers=1,
-                        backbone_heads=2, backbone_head_dim=16,
-                        residual_map_hw=(64, 128))
+    from guassianhand_tpu_torch.models.one_shot import build_model
+    cfg = reference_config()
     hw = 64
     # one batch, made on the CPU: kNN ties decide the interaction mask, so
     # both devices get the very same inputs
@@ -360,23 +764,63 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    bench_row = check_composite("bench_512_49152", scene_inputs(49152, 512, 512))
+    bench = scene_inputs(49152, 512, 512)
+    bench_row = check_composite("bench_512_49152", bench)
+    bench_grad = check_gradients("bench_512_49152", bench)
+    del bench
     phase_edges()
-    avatar_inputs, launches = phase_slice()
+    phase_edge_gradients()
+    phase_raster_fwd_bwd()
+    avatar_inputs, serve_launches = phase_slice()
     avatar_row = check_composite("avatar_4x256", avatar_inputs)
+    del avatar_inputs
+    fit_inputs, fit_launches, _ = phase_fit()
+    fit_grad = check_gradients("fit_256", fit_inputs)
     phase_reference()
+    phase_fit_reference()
+
+    def grad_err(row, part):
+        return max(v["max_abs_err"] for v in row[part].values())
+
     kernels = [{
         "name": "composite_forward", "route": "cuda",
         "source": "guassianhand_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "guassianhand_tpu/ops/rasterize_pallas.py:395",
-        "launches": launches,
+        "launches": fit_launches["composite_forward"],
+        "launches_by_path": {"serve": serve_launches,
+                             "fit": fit_launches["composite_forward"]},
         "max_abs_err": max(avatar_row["max_abs_err_rgb"],
                            avatar_row["max_abs_err_final_t"],
                            bench_row["max_abs_err_rgb"],
                            bench_row["max_abs_err_final_t"]),
         "ms": avatar_row["ms"], "plain_ms": avatar_row["plain_ms"],
         "bound_ms": avatar_row["bound_ms"],
-        "bound_by": avatar_row["bound_by"], "library_ms": None}]
+        "bound_by": avatar_row["bound_by"], "library_ms": None,
+        "train_ms_fit": fit_grad["k1_train_ms"],
+        "train_plain_ms_fit": fit_grad["k1_train_plain_ms"],
+    }, {
+        "name": "composite_backward", "route": "cuda",
+        "source": "guassianhand_tpu_torch/csrc/composite_bwd.cu",
+        "replaces": "guassianhand_tpu/ops/rasterize_pallas.py:668",
+        "launches": fit_launches["composite_backward"],
+        "max_abs_err": max(fit_grad["pair_rows_max_abs_err"],
+                           bench_grad["pair_rows_max_abs_err"]),
+        "ms": fit_grad["k2_ms"], "plain_ms": fit_grad["k2_plain_ms"],
+        "bound_ms": fit_grad["k2_bound_ms"],
+        "bound_by": fit_grad["k2_bound_by"], "library_ms": None,
+        "gradient_max_abs_err_fit": grad_err(fit_grad, "gradients"),
+    }, {
+        "name": "segment_reduce_sorted", "route": "cuda",
+        "source": "guassianhand_tpu_torch/csrc/segment_reduce.cu",
+        "replaces": "guassianhand_tpu/ops/segreduce_pallas.py:137",
+        "launches": fit_launches["segment_reduce_sorted"],
+        "max_abs_err": max(grad_err(fit_grad, "segment_reduce"),
+                           grad_err(bench_grad, "segment_reduce")),
+        "ms": fit_grad["k3_ms"], "plain_ms": fit_grad["k3_plain_ms"],
+        "bound_ms": fit_grad["k3_bound_ms"],
+        "bound_by": fit_grad["k3_bound_by"],
+        "library_ms": fit_grad["k3_library_ms"],
+    }]
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel timing failed")
     print(json.dumps({"kernels": kernels}))

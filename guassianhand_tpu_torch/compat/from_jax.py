@@ -14,6 +14,9 @@ keys, which are the reference torch names. The conversions:
 - per-identity maps and tokenizer embeddings as they are;
 - the JAX model keeps ``self_attn_layer`` at its top level, the reference
   (and the port) under ``renderer``.
+
+``load_jax_vgg`` loads the JAX ``VGGLoss``'s convolution weights (HWIO)
+into the port's ``VGGLoss`` (OIHW buffers).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from guassianhand_tpu_torch.nn.tokenizers import (
 from guassianhand_tpu_torch.nn.transformer import (Attention, Transformer1D,
                                                    TransformerBlock)
 from guassianhand_tpu_torch.render.renderer import GSRenderer
+from guassianhand_tpu_torch.train.vgg import VGGLoss
 
 Tree = Dict[str, Any]
 
@@ -221,3 +225,20 @@ def load_jax_params(module: nn.Module, params: Tree, strict: bool = True):
                              f"{tuple(ref[k].shape)}")
         sd[k] = torch.as_tensor(np.ascontiguousarray(v))
     return module.load_state_dict(sd, strict=strict)
+
+
+def load_jax_vgg(module: VGGLoss, params) -> None:
+    """Load the JAX ``VGGLoss.params`` [(w (3, 3, I, O), b (O,))] into
+    ``module`` in place."""
+    if len(params) != sum(1 for k in module.state_dict() if k[0] == "w"):
+        raise ValueError(f"{len(params)} convolutions given")
+    with torch.no_grad():
+        for i, (w, b) in enumerate(params):
+            w = torch.as_tensor(np.ascontiguousarray(
+                _np(w).transpose(3, 2, 0, 1)))
+            target = getattr(module, f"w{i}")
+            if w.shape != target.shape:
+                raise ValueError(f"conv {i}: JAX shape {tuple(w.shape)} vs "
+                                 f"port {tuple(target.shape)}")
+            target.copy_(w)
+            getattr(module, f"b{i}").copy_(torch.as_tensor(np.array(_np(b))))

@@ -1,0 +1,122 @@
+"""Experiment configs (counterpart of ``config.py``): dataclasses, YAML
+files that may inherit through ``extends:``, and ``key.sub=value``
+command-line overrides.
+
+``yaml`` is imported only when a YAML path is given, so a run configured by
+overrides alone needs no YAML package. The run's merged config is written
+as JSON. ``DataConfig`` holds what the synthetic scene reads; the JAX
+config's InterHand2.6M, edit and LPIPS settings are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import typing
+from typing import Any, Dict, List, Optional
+
+from guassianhand_tpu_torch.models.one_shot import OneShotConfig
+from guassianhand_tpu_torch.train.fit import FitConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "synthetic"          # "synthetic" | "interhand"
+    height: int = 256
+    width: int = 256
+    edge_subdivide: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    expname: str = "one_shot"
+    out_dir: str = "./EXPERIMENTS"
+    seed: int = 0
+    data: DataConfig = DataConfig()
+    model: OneShotConfig = OneShotConfig()
+    fit: FitConfig = FitConfig()
+    vgg_weights: Optional[str] = None
+    pretrained: Optional[str] = None
+    resume: bool = True
+
+
+def _from_dict(cls, d: Dict[str, Any]):
+    """Build (possibly nested) dataclasses from plain dicts."""
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    names = {f.name for f in dataclasses.fields(cls)}
+    for k, v in d.items():
+        if k not in names:
+            raise KeyError(f"unknown config key '{k}' for {cls.__name__}")
+        ftype = hints[k]
+        args = typing.get_args(ftype)
+        if typing.get_origin(ftype) is typing.Union and type(None) in args:
+            ftype = next(a for a in args if a is not type(None))
+        if dataclasses.is_dataclass(ftype) and isinstance(v, dict):
+            kwargs[k] = _from_dict(ftype, v)
+        elif (ftype is tuple or typing.get_origin(ftype) is tuple) \
+                and isinstance(v, list):
+            kwargs[k] = tuple(v)
+        else:
+            kwargs[k] = v
+    return cls(**kwargs)
+
+
+def _deep_merge(base: Dict, over: Dict) -> Dict:
+    out = dict(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _load_yaml_with_extends(path: str) -> Dict:
+    import yaml
+    with open(path) as f:
+        d = yaml.safe_load(f) or {}
+    ext = d.pop("extends", None)
+    if ext:
+        d = _deep_merge(_load_yaml_with_extends(
+            os.path.join(os.path.dirname(path), ext)), d)
+    return d
+
+
+def _parse_value(s: str) -> Any:
+    try:
+        return json.loads(s)
+    except ValueError:
+        return s
+
+
+def apply_overrides(d: Dict, overrides: List[str]) -> Dict:
+    """Apply 'a.b.c=value' dotted overrides; values parse as JSON where
+    they can, else stay strings."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override '{item}' is not key=value")
+        key, val = item.split("=", 1)
+        parts = key.split(".")
+        cur = d
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = _parse_value(val)
+    return d
+
+
+def load_config(path: Optional[str] = None,
+                overrides: Optional[List[str]] = None) -> ExperimentConfig:
+    d = _load_yaml_with_extends(path) if path else {}
+    if overrides:
+        d = apply_overrides(d, overrides)
+    return _from_dict(ExperimentConfig, d)
+
+
+def save_config_snapshot(cfg: ExperimentConfig, run_dir: str) -> str:
+    """The merged config as JSON in the run directory."""
+    os.makedirs(run_dir, exist_ok=True)
+    path = os.path.join(run_dir, "config_snapshot.json")
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1)
+    return path

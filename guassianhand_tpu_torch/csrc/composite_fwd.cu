@@ -2,7 +2,8 @@
 //
 // Replaces: guassianhand_tpu/ops/rasterize_pallas.py::composite_forward
 // (body _fwd_kernel, helpers _block_alpha/_prefix_products/_forward_block),
-// the render-only call with store_cpx=False.
+// both calls: render mode (store_cpx=False) and training mode
+// (store_cpx=True), which keeps what the backward needs.
 //
 // What it computes: per 16x16 pixel tile, front-to-back alpha compositing
 // over the tile's depth-sorted (Gaussian, tile) pairs, with the acceptance
@@ -11,7 +12,15 @@
 //   alpha = min(0.99, opacity * exp(power));   skip the pair if alpha < 1/255
 //   stop before the pair that would take T (1 - alpha) below 1e-4
 // Outputs: rgb (H, W, 3) = sum_i c_i alpha_i T_i and the final
-// transmittance T (H, W), fp32.
+// transmittance T (H, W), fp32. Training mode also writes n_contrib (H, W)
+// int32: the count of the tile's pairs walked up to and including the
+// pixel's last composited pair. The TPU kernel stores every pair's incoming
+// T (cpx, TB x 256 x 128 floats) so that its backward can skip the prefix
+// products; here each thread walks its pixel's pairs in sequence, so one
+// int per pixel tells the backward (csrc/composite_bwd.cu) where to start
+// its back-to-front walk, and it recovers T by division from final T. Both
+// modes run the same instructions on the floats, so training mode's rgb and
+// final T are bit-identical to render mode's.
 //
 // What bounds it on this card: the pixel x pair evaluations on the CUDA
 // cores, 26 fp32 operations for a pair that is composited (a multiply-add
@@ -50,7 +59,8 @@ composite_fwd_kernel(const int32_t* __restrict__ tile_range,
                      const int32_t* __restrict__ pair_gid,
                      const float* __restrict__ attrs, int ntx, int height,
                      int width, float* __restrict__ out_rgb,
-                     float* __restrict__ out_t) {
+                     float* __restrict__ out_t,
+                     int32_t* __restrict__ out_contrib) {
   __shared__ float2 s_xy[kPix];
   __shared__ float4 s_conic_opa[kPix];
   __shared__ float s_r[kPix];
@@ -69,6 +79,7 @@ composite_fwd_kernel(const int32_t* __restrict__ tile_range,
 
   float T = 1.0f;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+  int contrib = 0;
   bool done = !inside;
 
   for (int base = lo; base < hi; base += kPix) {
@@ -109,6 +120,7 @@ composite_fwd_kernel(const int32_t* __restrict__ tile_range,
       cg += s_g[j] * w;
       cb += s_b[j] * w;
       T = test_t;
+      contrib = base - lo + j + 1;
     }
   }
 
@@ -118,25 +130,27 @@ composite_fwd_kernel(const int32_t* __restrict__ tile_range,
     out_rgb[3 * p + 1] = cg;
     out_rgb[3 * p + 2] = cb;
     out_t[p] = T;
+    if (out_contrib != nullptr) out_contrib[p] = contrib;
   }
 }
 
 }  // namespace
 
-// Launches on `stream` (a cudaStream_t); does not synchronise. Returns
-// cudaGetLastError() as an int, 0 on success.
+// Launches on `stream` (a cudaStream_t); does not synchronise. `out_contrib`
+// is null in render mode. Returns cudaGetLastError() as an int, 0 on success.
 extern "C" int gh_composite_forward(const void* tile_range,
                                     const void* pair_gid, const void* attrs,
                                     int num_tiles, int ntx, int height,
                                     int width, void* out_rgb, void* out_t,
-                                    void* stream) {
+                                    void* out_contrib, void* stream) {
   if (num_tiles > 0) {
     composite_fwd_kernel<<<num_tiles, kPix, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(tile_range),
         static_cast<const int32_t*>(pair_gid),
         static_cast<const float*>(attrs), ntx, height, width,
-        static_cast<float*>(out_rgb), static_cast<float*>(out_t));
+        static_cast<float*>(out_rgb), static_cast<float*>(out_t),
+        static_cast<int32_t*>(out_contrib));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,19 +1,23 @@
 """Synthetic two-hand scenes (counterpart of ``data/synthetic.py``): a
 synthetic MANO-like model posed by LBS, edge-subdivided, with packed UV
-atlas coordinates and the kNN interaction mask. Only the model inputs are
-built here (the JAX ``with_target=False`` batch)."""
+atlas coordinates and the kNN interaction mask, and on request a
+"ground-truth" image rendered from a fixed Gaussian decoration of the mesh,
+the target of a one-shot fit."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from guassianhand_tpu_torch.core.camera import Camera
+from guassianhand_tpu_torch.core.gaussians import Gaussians
 from guassianhand_tpu_torch.mano.lbs import ManoModel, lbs
 from guassianhand_tpu_torch.mano.model import synthetic_mano_model
 from guassianhand_tpu_torch.mano.uv import synthetic_uv_atlas
 from guassianhand_tpu_torch.ops.knn import interaction_mask
+from guassianhand_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
 from guassianhand_tpu_torch.ops.subdivision import (build_subdivision_plans,
                                                     subdivide_n)
 
@@ -81,11 +85,46 @@ class SyntheticHandScene:
         return torch.as_tensor(np.concatenate([self.uv_r, self.uv_l]),
                                dtype=torch.float32, device=self.device)
 
+    def decoration_gaussians(self, points: torch.Tensor,
+                             seed: int = 0) -> Gaussians:
+        """Fixed "ground-truth" Gaussians on the mesh, about 2 px across at
+        the scene's focal length, with seeded colours."""
+        n = points.shape[0]
+        dev = points.device
+        rng = np.random.RandomState(seed)
+        colors = torch.as_tensor(rng.uniform(0.2, 1.0, (n, 1, 3)),
+                                 dtype=torch.float32, device=dev)
+        sigma = 2.0 * 0.6 / (0.9 * self.width)
+        return Gaussians(
+            xyz=points, opacity=torch.full((n, 1), 0.9, device=dev),
+            rotation=torch.tensor([[1.0, 0.0, 0.0, 0.0]],
+                                  device=dev).expand(n, 4).contiguous(),
+            scaling=torch.full((n, 3), sigma, device=dev), shs=colors)
+
+    @torch.no_grad()
+    def render_target(self, points: torch.Tensor,
+                      raster: Optional[RasterizeConfig] = None,
+                      seed: int = 0):
+        """(rgb (H, W, 3), mask (H, W)) of the decoration Gaussians from the
+        scene's camera."""
+        cam = Camera.from_w2c(self.w2c, self.K, self.height, self.width,
+                              device=self.device)
+        out = rasterize(self.decoration_gaussians(points, seed), cam,
+                        height=self.height, width=self.width, use_rgb=True,
+                        config=raster or RasterizeConfig())
+        return out["comp_rgb"], out["comp_mask"]
+
 
 def synthetic_batch(scene: SyntheticHandScene, seed: int = 0,
                     pose_scale: float = 0.3,
+                    raster: Optional[RasterizeConfig] = None,
+                    with_target: bool = False,
                     separation: float = 0.08) -> Dict[str, torch.Tensor]:
-    """A model-ready batch (B=1) for the pose drawn from ``seed``."""
+    """A model-ready batch (B=1) for the pose drawn from ``seed``; with
+    ``with_target`` also target_rgb (1, H, W, 3) and target_mask (1, H, W)
+    from ``render_target``. The default leaves the target out, which the
+    render path does not need (the JAX function renders it unless told
+    not to)."""
     dev = scene.device
     rng = np.random.RandomState(seed)
     pose_r = torch.as_tensor(rng.uniform(-pose_scale, pose_scale, 48),
@@ -103,7 +142,7 @@ def synthetic_batch(scene: SyntheticHandScene, seed: int = 0,
     K_normed = K.clone()
     K_normed[0] /= scene.width
     K_normed[1] /= scene.height
-    return {
+    batch = {
         "points": points[None],
         "points_tar": points[None],
         "vert_uv": scene.vert_uv()[None],
@@ -115,3 +154,8 @@ def synthetic_batch(scene: SyntheticHandScene, seed: int = 0,
         "K_render": K[None, None],
         "background": torch.zeros((1, 3), device=dev),
     }
+    if with_target:
+        rgb, mask = scene.render_target(points, raster)
+        batch["target_rgb"] = rgb[None]
+        batch["target_mask"] = mask[None]
+    return batch

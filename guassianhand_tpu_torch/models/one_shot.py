@@ -1,5 +1,5 @@
-"""One-shot hand-avatar model, render path (counterpart of
-``models/one_shot.py``: ``features`` and ``__call__``, eval mode).
+"""One-shot hand-avatar model (counterpart of ``models/one_shot.py``:
+``features``, ``static_features`` and ``__call__``, eval mode).
 
   camera feats = MLP(25 -> 768)([K_normed.flat, c2w.flat])
   pose feats   = MLP(96 -> 768)(two-hand MANO pose)
@@ -17,6 +17,11 @@
   hidden       = scene codes sampled at uv (80) ++ additional (51) = 131,
                  then the interaction self-attention on interacting points
   render       = GSRenderer: 2N slots, appearance residuals, views
+
+The frame embeddings and the shade branch depend on no per-identity
+parameter: ``static_features`` computes them once for a one-shot fit and
+``features`` reuses them from ``batch["static_feats"]``. The model runs in
+eval semantics (no dropout), as the JAX fit step applies it.
 
 Parameters carry the reference ``state_dict`` names, so
 ``compat/from_jax.py`` and a reference checkpoint both load by key. Runs in
@@ -155,11 +160,12 @@ class OneShotAvatarModel(nn.Module):
                        dim=-1)
         return codes + mb[None]
 
-    def features(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """The pre-render feature pipeline; ``hidden`` is (B, N, 131)."""
+    def _frame_embeds(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The per-frame embeddings: camera and pose MLPs and the
+        positional encodings, functions of the batch and frozen weights."""
         c = self.cfg
         points = batch["points"]
-        b, n, _ = points.shape
+        b = points.shape[0]
         camera_feats = self.camera_embedder(torch.cat(
             [batch["intrinsic_normed"].reshape(b, -1),
              batch["c2w"].reshape(b, -1)], dim=-1))
@@ -167,22 +173,56 @@ class OneShotAvatarModel(nn.Module):
         uv = batch["vert_uv"]
         uv_n = torch.stack([2.0 * uv[..., 0] - 1.0,
                             2.0 * (uv[..., 1] / 0.5) - 1.0], dim=-1)
-        uv_pe = positional_encoding(uv_n, c.pe_levels)
-        xyz_pe = positional_encoding(points, c.pe_levels)
+        return {"camera_feats": camera_feats, "pose_feats": pose_feats,
+                "uv_n": uv_n, "uv_pe": positional_encoding(uv_n, c.pe_levels),
+                "xyz_pe": positional_encoding(points, c.pe_levels)}
+
+    def _shade_tokens(self, batch: Dict[str, Any], emb: Dict[str, Any]):
+        """The shade branch: pointnet -> tokenizer -> 10-layer backbone."""
+        points = batch["points"]
+        b, n, _ = points.shape
+        inter = batch["inter_mask"].to(torch.float32)[..., None]
+        pose_b = emb["pose_feats"][:, None].expand(b, n, -1)
+        cam_b = emb["camera_feats"][:, None].expand(b, n, -1)
+        shade_in = torch.cat([emb["uv_n"], emb["uv_pe"], points,
+                              emb["xyz_pe"], inter, pose_b, cam_b],
+                             dim=-1)                            # (B, N, 1587)
+        return self.backbone_shade(
+            self.tokenizer_shade(self.point_encoder_shade(shade_in)))
+
+    def static_features(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The fit-constant prefix of ``features``: the frame embeddings and
+        the whole shade branch. No per-identity parameter sits upstream of
+        it, and a one-shot fit refits one constant frame, so it is computed
+        once per fit; ``features`` reuses it from ``batch["static_feats"]``.
+        Valid only for the frame inputs and frozen weights it was computed
+        from."""
+        with torch.no_grad():
+            emb = self._frame_embeds(batch)
+            return {**emb, "tokens_shade": self._shade_tokens(batch, emb)}
+
+    def features(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The pre-render feature pipeline; ``hidden`` is (B, N, 131). With
+        ``batch["static_feats"]`` (``static_features``) the frame embeddings
+        and the shade branch are taken from it, detached."""
+        points = batch["points"]
+        b, n, _ = points.shape
+        static = batch.get("static_feats")
+        if static is not None:
+            emb = {k: v.detach() for k, v in static.items()}
+            tokens_shade = emb["tokens_shade"]
+        else:
+            emb = self._frame_embeds(batch)
+            tokens_shade = self._shade_tokens(batch, emb)
+        uv_n, uv_pe, xyz_pe = emb["uv_n"], emb["uv_pe"], emb["xyz_pe"]
+        camera_feats, pose_feats = emb["camera_feats"], emb["pose_feats"]
 
         id_plane = self.identity_code_one_shot.expand(
             b, *self.identity_code_one_shot.shape[1:])
         id_vert = grid_sample_batched(id_plane, uv_n)          # (B, N, 33)
-
+        codes = self.scene_codes(uv_n, uv_pe, id_vert, tokens_shade)
         inter = batch["inter_mask"].to(torch.float32)[..., None]
         pose_b = pose_feats[:, None].expand(b, n, pose_feats.shape[-1])
-        cam_b = camera_feats[:, None].expand(b, n, camera_feats.shape[-1])
-        shade_in = torch.cat([uv_n, uv_pe, points, xyz_pe, inter, pose_b,
-                              cam_b], dim=-1)                   # (B, N, 1587)
-        tokens_shade = self.backbone_shade(
-            self.tokenizer_shade(self.point_encoder_shade(shade_in)))
-
-        codes = self.scene_codes(uv_n, uv_pe, id_vert, tokens_shade)
         additional = self.additional_features_fc(torch.cat(
             [uv_n, uv_pe, points, xyz_pe, inter, id_vert, pose_b], dim=-1))
         hidden = torch.cat([grid_sample_batched(codes, uv_n), additional],

@@ -50,6 +50,14 @@ def opacity_cull_keep(mx, my, radius, opacity, tx, ty) -> torch.Tensor:
             <= opacity_cull_r2(radius, opacity))
 
 
+def straight_through_alpha(alpha_raw: torch.Tensor) -> torch.Tensor:
+    """min(ALPHA_MAX, alpha) in value, identity in gradient: the clamp at
+    0.99 passes the gradient straight through, as in the CUDA reference and
+    the composite backward kernel."""
+    clipped = torch.clamp(alpha_raw, max=ALPHA_MAX)
+    return alpha_raw + (clipped - alpha_raw).detach()
+
+
 def tile_rect(mean2d: torch.Tensor, radius: torch.Tensor, n_tiles_x: int,
               n_tiles_y: int, y_band=None):
     """Tile-space bounding rect [min, max) per Gaussian, CUDA getRect

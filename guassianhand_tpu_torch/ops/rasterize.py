@@ -1,7 +1,15 @@
-"""3DGS rasterization, forward (counterpart of ``ops/rasterize.py``).
+"""Differentiable 3DGS rasterization (counterpart of ``ops/rasterize.py``).
 
   project (PyTorch)  ->  bin (exact pair enumeration + stable sort)  ->
-  composite (CUDA kernel on the card, ``ops/rasterize_cuda.py``)
+  composite (CUDA kernels on the card, ``ops/rasterize_cuda.py``)
+
+The composite is a ``torch.autograd.Function`` over the packed per-Gaussian
+attributes: its forward runs the forward kernel in training mode, its
+backward the backward kernel and then the sorted-segment reduction
+(``ops/segreduce_cuda.py``) that sums the per-pair gradients per Gaussian.
+Gradients reach means, scales, rotations, opacities and colours through the
+projection and SH code by plain autograd, as the JAX package's do. Without
+grad (rendering) the forward kernel runs in render mode alone.
 
 The mask render equals ``1 - final_T`` of the same pass. The JAX package's
 static caps (tiles per Gaussian, pair budget, blocks per tile) do not exist
@@ -21,8 +29,10 @@ from guassianhand_tpu_torch.core.gaussians import Gaussians
 from guassianhand_tpu_torch.ops.binning import bin_gaussians
 from guassianhand_tpu_torch.ops.common import TILE
 from guassianhand_tpu_torch.ops.projection import project_gaussians
-from guassianhand_tpu_torch.ops.rasterize_cuda import (composite_forward,
+from guassianhand_tpu_torch.ops.rasterize_cuda import (composite_backward,
+                                                       composite_forward,
                                                        pack_attrs)
+from guassianhand_tpu_torch.ops.segreduce_cuda import segment_reduce_sorted
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +59,39 @@ def _colors(gaussians: Gaussians, camera: Camera, sh_degree: int,
     return sh_lib.eval_sh(sh_degree, gaussians.shs, dirs)
 
 
+class Composite(torch.autograd.Function):
+    """(rgb, final_t) of the binned pairs, differentiable in ``attrs``
+    (N, 9) (``pack_attrs``' layout)."""
+
+    @staticmethod
+    def forward(ctx, attrs, tile_range, pair_gid, height, width):
+        rgb, final_t, n_contrib = composite_forward(
+            tile_range, pair_gid, attrs, height=height, width=width,
+            store_contrib=True)
+        # the pairs in Gaussian order, for the backward's reduction
+        order = torch.argsort(pair_gid, stable=True)
+        ctx.save_for_backward(attrs, tile_range, pair_gid, final_t,
+                              n_contrib, order)
+        ctx.size = (height, width)
+        return rgb, final_t
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_rgb, grad_t):
+        attrs, tile_range, pair_gid, final_t, n_contrib, order = \
+            ctx.saved_tensors
+        height, width = ctx.size
+        # an output with no gradient arrives as zeros (materialize_grads)
+        pair_grads = composite_backward(
+            tile_range, pair_gid, attrs, grad_rgb.contiguous(),
+            grad_t.contiguous(), final_t, n_contrib, height=height,
+            width=width)
+        grad_attrs = segment_reduce_sorted(
+            pair_gid[order], pair_grads[:, order].contiguous(),
+            attrs.shape[0])
+        return grad_attrs, None, None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class CompositeInputs:
     """What the composite kernel reads: the binned pairs and the packed
@@ -61,7 +104,11 @@ class CompositeInputs:
     width: int
 
     def composite(self):
-        """(rgb (H, W, 3), final_t (H, W)) through ``composite_forward``."""
+        """(rgb (H, W, 3), final_t (H, W)): through ``Composite`` when a
+        gradient is wanted, else the render-mode forward alone."""
+        if torch.is_grad_enabled() and self.attrs.requires_grad:
+            return Composite.apply(self.attrs, self.tile_range,
+                                   self.pair_gid, self.height, self.width)
         return composite_forward(self.tile_range, self.pair_gid, self.attrs,
                                  height=self.height, width=self.width)
 

@@ -1,13 +1,16 @@
 """Dense O(N * P) front-to-back compositing oracle (counterpart of
 ``ops/rasterize_ref.py``), for tests at a few thousand Gaussians and small
 images. It applies the binner's tile-granularity inclusion rule and the same
-opacity cull, so it agrees with the tiled path pair for pair."""
+opacity cull, so it agrees with the tiled path pair for pair. Differentiable by autograd; its
+alpha clamp is straight-through (``ops/common.straight_through_alpha``), so
+its gradients are those of the composite backward."""
 from __future__ import annotations
 
 import torch
 
-from guassianhand_tpu_torch.ops.common import (ALPHA_MAX, ALPHA_MIN, T_EPS,
-                                               TILE, opacity_cull_keep,
+from guassianhand_tpu_torch.ops.common import (ALPHA_MIN, T_EPS, TILE,
+                                               opacity_cull_keep,
+                                               straight_through_alpha,
                                                tile_rect)
 
 
@@ -31,7 +34,7 @@ def composite_reference(mean2d, conic, color, opacity, depth, radius,
     dy = mean2d[None, :, 1] - py[:, None]
     A, B, C = conic[:, 0], conic[:, 1], conic[:, 2]
     power = -0.5 * (A[None] * dx * dx + C[None] * dy * dy) - B[None] * dx * dy
-    alpha = torch.clamp(opacity[None, :] * torch.exp(power), max=ALPHA_MAX)
+    alpha = straight_through_alpha(opacity[None, :] * torch.exp(power))
 
     ntx = -(-width // TILE)
     nty = -(-height // TILE)

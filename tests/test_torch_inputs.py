@@ -33,7 +33,7 @@ from guassianhand_tpu_torch.mano.uv import normalize_uv
 from guassianhand_tpu_torch.ops.knn import interaction_mask, knn
 from guassianhand_tpu_torch.ops.subdivision import subdivide_n
 from guassianhand_tpu_torch.utils.saving import save_image, to_uint8
-from tests.torch_parity import to_torch
+from tests.torch_parity import one_torch_thread, to_torch  # noqa: F401
 
 HW = 64
 

@@ -1,16 +1,17 @@
-"""The PyTorch port's rasterizer held against the JAX package on the CPU.
+"""The PyTorch port's rasterizer stages held against the JAX package on
+the CPU: projection, binning, the opacity cull, the dense oracle and K1's
+and K2's plain twins (rasterize and rasterize_multiview end to end, with
+their gradients, are in tests/test_torch_rasterize_grad.py).
 
 The same numpy inputs go through both. The JAX side runs as its own tests
 run it: Pallas in interpret mode, ``pack_rgb=False`` (exact colours), caps
 large enough that it reports overflow 0, so its pair set is complete. The
-port's composite runs through its plain twin, as every CPU tensor does.
+port's composite runs through its plain twins, as every CPU tensor does.
 
-Tolerance: the forward tolerances of tests/test_rasterize.py, atol 2e-5 and
-rtol 1e-4 (fp32 reassociation of the colour sums; the acceptance gates see
-the same values).
+Tolerances: the forward's of tests/test_rasterize.py, atol 2e-5 and rtol
+1e-4 (fp32 reassociation of the colour sums; the acceptance gates see the
+same values).
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,21 +21,18 @@ import torch
 from guassianhand_tpu.ops import binning as jbin
 from guassianhand_tpu.ops.projection import project_gaussians as j_project
 from guassianhand_tpu.ops.rasterize import RasterizeConfig, _composite
-from guassianhand_tpu.ops.rasterize import rasterize as j_rasterize
-from guassianhand_tpu.ops.rasterize import rasterize_multiview as j_multiview
 from guassianhand_tpu.ops.rasterize_ref import composite_reference as j_ref
 from guassianhand_tpu_torch.core.camera import Camera
 from guassianhand_tpu_torch.core.gaussians import Gaussians
 from guassianhand_tpu_torch.ops import rasterize_cuda
 from guassianhand_tpu_torch.ops.binning import bin_gaussians
 from guassianhand_tpu_torch.ops.projection import project_gaussians
-from guassianhand_tpu_torch.ops.rasterize import (rasterize,
-                                                  rasterize_multiview,
-                                                  render_gaussians)
-from guassianhand_tpu_torch.ops.rasterize_cuda import (composite_forward,
+from guassianhand_tpu_torch.ops.rasterize_cuda import (composite_backward,
+                                                       composite_forward,
                                                        pack_attrs)
 from guassianhand_tpu_torch.ops.rasterize_ref import composite_reference
-from tests.torch_parity import RASTER_ATOL, RASTER_RTOL, to_torch
+from tests.torch_parity import (RASTER_ATOL, RASTER_RTOL,  # noqa: F401
+                                one_torch_thread, to_torch)
 from tests.utils import make_camera, make_gaussians
 
 JCFG = RasterizeConfig(interpret=True, pack_rgb=False, max_tiles_per_gaussian=16,
@@ -171,34 +169,42 @@ def test_composite_twin_matches_jax_kernel_and_reference(scene):
 
 def test_composite_twin_counts_the_kernels_operations():
     """count_ops: per pixel, the fp32 operations of each pair step the
-    kernel's sequential loop takes, against that loop written out, on one
-    tile whose pairs reach every gate: conics that are not positive
-    definite (power > 0), faint splats (alpha < 1/255) and enough opacity
-    to stop most pixels (T below 1e-4)."""
+    forward and backward kernels' loops take, and the forward's n_contrib,
+    against those loops written out, on one tile whose pairs reach every
+    gate: conics that are not positive definite (power > 0), faint splats
+    (alpha < 1/255) and enough opacity to stop most pixels (T below
+    1e-4)."""
     rng = np.random.RandomState(9)
     n = 160
     rows = np.stack([rng.uniform(0, 16, n), rng.uniform(0, 16, n),
                      rng.uniform(0.01, 2.0, n), rng.uniform(-0.4, 0.4, n),
                      rng.uniform(0.01, 2.0, n), rng.uniform(0.2, 0.99, n),
                      *rng.uniform(0, 1, (3, n))], 1).astype(np.float32)
-    _, final_t, ops = rasterize_cuda.composite_plain(
-        torch.tensor([0, n], dtype=torch.int32),
-        torch.arange(n, dtype=torch.int32), to_torch(rows), height=16,
-        width=16, count_ops=True)
+    tile_range = torch.tensor([0, n], dtype=torch.int32)
+    pair_gid = torch.arange(n, dtype=torch.int32)
+    _, final_t, contrib, ops = rasterize_cuda.composite_plain(
+        tile_range, pair_gid, to_torch(rows), height=16, width=16,
+        store_contrib=True, count_ops=True)
+    _, bwd_ops = rasterize_cuda.composite_backward_plain(
+        tile_range, pair_gid, to_torch(rows), torch.ones((16, 16, 3)),
+        torch.ones((16, 16)), final_t, contrib, height=16, width=16,
+        count_ops=True)
     stopped = 0
     for py in range(16):
         for px in range(16):
-            t, count = np.float32(1.0), 0
-            for x, y, a, b, c, o, *_ in rows:
+            t, count, last, gates = np.float32(1.0), 0, 0, []
+            for i, (x, y, a, b, c, o, *_) in enumerate(rows):
                 count += rasterize_cuda.OPS_EVALUATED
                 dx, dy = x - np.float32(px), y - np.float32(py)
                 power = np.float32(-0.5) * (a * dx * dx + c * dy * dy) \
                     - b * dx * dy
                 if power > 0:
+                    gates.append(0)
                     continue
                 count += rasterize_cuda.OPS_PAST_POWER
                 alpha = min(np.float32(0.99), o * np.exp(power))
                 if alpha < np.float32(1 / 255):
+                    gates.append(1)
                     continue
                 count += rasterize_cuda.OPS_PAST_ALPHA
                 if t * (np.float32(1) - alpha) < np.float32(1e-4):
@@ -206,8 +212,17 @@ def test_composite_twin_counts_the_kernels_operations():
                     break
                 count += rasterize_cuda.OPS_ACCEPTED
                 t = t * (np.float32(1) - alpha)
+                gates.append(2)
+                last = i + 1
             assert int(ops[py, px]) == count, (py, px)
             assert float(final_t[py, px]) == pytest.approx(t, rel=1e-4)
+            assert int(contrib[py, px]) == last, (py, px)
+            gates = gates[:last]
+            assert int(bwd_ops[py, px]) == (
+                rasterize_cuda.OPS_BWD_EVALUATED * last
+                + rasterize_cuda.OPS_BWD_PAST_POWER * sum(
+                    k > 0 for k in gates)
+                + rasterize_cuda.OPS_BWD_LIVE * gates.count(2)), (py, px)
     assert 0 < stopped < 256
 
 
@@ -218,62 +233,6 @@ def test_composite_reference_port_matches_jax(scene):
                               scene["h"], scene["w"], to_torch(scene["bg"]))
     for a, b in zip(got, scene["ref"]):
         close(a, b)
-
-
-@pytest.mark.parametrize("hw,sh_degree", [((64, 64), None), ((60, 100), 3)])
-def test_rasterize_matches_jax(hw, sh_degree):
-    """The whole forward with a background: precomputed RGB at 64x64, and
-    SH colours at 100x60, which 16-px tiles do not divide."""
-    h, w = hw
-    use_rgb = sh_degree is None
-    kw = {"use_rgb": True} if use_rgb else {"sh_degree": sh_degree}
-    cam = make_camera(h, w)
-    g = make_gaussians(300, seed=3, sh_degree=0 if use_rgb else sh_degree)
-    bg = np.array([0.2, 0.5, 0.1], np.float32)
-    want = jax.jit(lambda g, c: j_rasterize(
-        g, c, height=h, width=w, background=jnp.asarray(bg), config=JCFG,
-        **kw))(g, cam)
-    assert int(want["overflow"]) == 0
-    got = rasterize(port_gaussians(g), port_camera(cam, h, w), height=h,
-                    width=w, background=to_torch(bg), **kw)
-    for k in ("comp_rgb", "comp_mask", "final_t", "radii"):
-        close(got[k], want[k])
-    assert got["n_pairs"] == int(want["n_pairs"])
-    assert got["overflow"] == 0
-    by_matrices = render_gaussians(
-        port_gaussians(g), np.asarray(cam.w2c), np.asarray(cam.K), height=h,
-        width=w, background=to_torch(bg), **kw)
-    torch.testing.assert_close(by_matrices["comp_rgb"], got["comp_rgb"],
-                               atol=0, rtol=0)
-
-
-def test_rasterize_multiview_matches_jax():
-    """Two views of a 40-row image (not tile aligned) on one stacked
-    canvas, with validity-masked slots and a background."""
-    h, w = 40, 48
-    cam = make_camera(h, w)
-    g = make_gaussians(200, seed=5)
-    rng = np.random.RandomState(6)
-    valid = (rng.uniform(size=200) > 0.3).astype(np.float32)
-    angle = 0.3
-    rot = np.array([[np.cos(angle), 0, np.sin(angle), 0], [0, 1, 0, 0],
-                    [-np.sin(angle), 0, np.cos(angle), 0], [0, 0, 0, 1]],
-                   np.float32)
-    w2c0 = np.asarray(cam.w2c)
-    w2cs = np.stack([w2c0, w2c0 @ rot])
-    Ks = np.stack([np.asarray(cam.K)] * 2)
-    bg = np.array([0.3, 0.3, 0.6], np.float32)
-    gj = dataclasses.replace(g, valid=jnp.asarray(valid))
-    want = jax.jit(lambda g: j_multiview(
-        g, jnp.asarray(w2cs), jnp.asarray(Ks), height=h, width=w,
-        background=jnp.asarray(bg), use_rgb=True, config=JCFG))(gj)
-    assert int(want["overflow"]) == 0
-    gt = dataclasses.replace(port_gaussians(g), valid=to_torch(valid))
-    got = rasterize_multiview(gt, to_torch(w2cs), to_torch(Ks), height=h,
-                              width=w, background=to_torch(bg), use_rgb=True)
-    for k in ("comp_rgb", "comp_mask", "final_t"):
-        close(got[k], want[k])
-    assert got["n_pairs"] == int(want["n_pairs"])
 
 
 def test_composite_forward_rejects_bad_inputs():
@@ -289,3 +248,19 @@ def test_composite_forward_rejects_bad_inputs():
                           height=32, width=32)
     rgb, final_t = composite_forward(tr, gid, attrs, height=32, width=32)
     assert rgb.abs().max() == 0 and final_t.min() == 1
+
+
+def test_composite_backward_rejects_bad_inputs():
+    tr = torch.tensor([0, 0, 0, 0, 0], dtype=torch.int32)
+    gid = torch.zeros(0, dtype=torch.int32)
+    attrs = torch.zeros((3, 9))
+    img = (torch.zeros((32, 32, 3)), torch.zeros((32, 32)),
+           torch.ones((32, 32)), torch.zeros((32, 32), dtype=torch.int32))
+    with pytest.raises(ValueError, match="n_contrib"):
+        composite_backward(tr, gid, attrs, *img[:3], img[3].long(),
+                           height=32, width=32)
+    with pytest.raises(ValueError, match="grad_rgb"):
+        composite_backward(tr, gid, attrs, img[0][:, :16], *img[1:],
+                           height=32, width=32)
+    assert composite_backward(tr, gid, attrs, *img, height=32,
+                              width=32).shape == (9, 0)
