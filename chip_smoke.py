@@ -5,9 +5,10 @@
 
 Phases, each reported on its own line:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: the three CUDA kernels (composite forward and backward, sorted-
-     segment sum) compiled from csrc/ with nvcc for sm_90a, one nvcc each,
-     all at once, with ptxas' registers and spills;
+  2. build: the five CUDA sources (composite_fwd.cu, composite_bwd.cu,
+     segment_reduce.cu, projection.cu, flash_attention.cu) compiled from
+     csrc/ with nvcc for sm_90a, one nvcc each, all at once, with ptxas'
+     registers, shared memory and spills;
   3. kernel vs plain: the forward kernel held against its plain PyTorch
      twin at the bench scene (49,152 random Gaussians, 512^2), at edge
      cases the main path does not reach (odd image sizes, stacked views,
@@ -19,16 +20,33 @@ Phases, each reported on its own line:
      of mean2d, conic, opacity and colour within atol 2e-4 * scale + rtol
      2e-3, n_contrib exact, training mode's rgb and final T bit-identical
      to render mode's;
-  5. raster fwd+bwd: bench.py::main's step (project, bin, composite forward
+  5. projection vs plain: the fused projection's forward and adjoint
+     kernels against their twins at the bench scene, the edge scene
+     (near-plane rows, both sides of the 1.3 tan clamp, det <= 0, quaternions
+     far from unit norm, radii at integers) and the kernel fit's own
+     Gaussians: mean2d, depth and conic within atol 2e-5 + rtol 1e-4 * |ref|
+     on visible rows, radius and visible exact, gradients within atol
+     2e-4 * scale + rtol 2e-3 and exactly 0 on rows that are not visible;
+  6. attention vs plain: the flash attention's forward, dkv and dq kernels
+     against their twins at edge cases (L = 1, L = N, no mask, N no block
+     divides) and at the kernel fit's own q, k, v and mask: out within atol
+     2e-5 + rtol 1e-4 * |ref|, masked rows exactly 0, dq, dk, dv within
+     1e-4 * scale; beside them the default chunked route and torch's
+     scaled_dot_product_attention;
+  7. raster fwd+bwd: bench.py::main's step (project, bin, composite forward
      and backward at the bench scene), ms per step and rays/s;
-  6. the serving slice: the full-width one-shot avatar model (seeded
+  8. the serving slice: the full-width one-shot avatar model (seeded
      weights) serves R = 4 requests, each one pose in V = 4 orbit views at
-     256^2;
-  7. the fit slice: the full-width model fits its per-identity parameters
+     256^2; then again with both kernel switches on
+     (projection_impl="pallas", GH_FLASH_ATTN=1);
+  9. the fit slice: the full-width model fits its per-identity parameters
      to the synthetic target (15,404 points, 256^2, Adam, vgg 0.1, fp32),
-     one warm-up step and then 10 steps;
-  8. reference: a small model rendered, and fitted for 2 steps, on the card
-     and on the CPU with the same weights must agree.
+     one warm-up step and then 10 steps, once on the default route and once
+     with both switches on, which launches all eight kernel functions; the
+     warm-up losses of the two (the same parameters) agree within 1e-5;
+ 10. reference: a small model rendered, and fitted for 2 steps, on the card
+     and on the CPU with the same weights must agree, with the switches off
+     and on.
 Kernel launch counts are zeroed just before each slice and read just after;
 kernels and twins are timed with CUDA events.
 
@@ -38,8 +56,11 @@ and no result line. Needs a CUDA card; never falls back to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -56,6 +77,12 @@ ATOL, RTOL = 2e-5, 1e-4
 # gradient tolerance: atol GRAD_ATOL * (max |twin gradient| of the array)
 # + GRAD_RTOL * |twin gradient|, as tests/test_rasterize.py holds gradients
 GRAD_ATOL, GRAD_RTOL = 2e-4, 2e-3
+# attention: out within ATOL + RTOL * |ref|, the forward tolerance above
+# (tests/test_attention.py's atol 2e-5 was set for unit-normal inputs, whose
+# outputs stay below 1; at the fit they reach several units and a sum over
+# 15k keys rounds apart by more); dq/dk/dv within ATTN_GRAD_ATOL * scale, as
+# tests/test_attention.py holds JAX's flash path
+ATTN_GRAD_ATOL = 1e-4
 PARAM_ATOL = 1e-4   # card vs CPU, trainable parameters after 2 fit steps
 REQUESTS, VIEWS, HW = 4, 4, 256
 RASTER_STEPS = 20
@@ -107,16 +134,19 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     """Every kernel of the port, one nvcc per source, all started together."""
-    from guassianhand_tpu_torch.ops import rasterize_cuda, segreduce_cuda
+    from guassianhand_tpu_torch.ops import (flash_attention_cuda,
+                                            projection_cuda, rasterize_cuda,
+                                            segreduce_cuda)
     from guassianhand_tpu_torch.ops.cuda_build import build_all
     libs = [rasterize_cuda.FORWARD_LIB, rasterize_cuda.BACKWARD_LIB,
-            segreduce_cuda.LIB]
+            segreduce_cuda.LIB, projection_cuda.LIB, flash_attention_cuda.LIB]
     t0 = time.perf_counter()
     texts = build_all(libs)
     seconds = time.perf_counter() - t0
     for lib in libs:
         ptxas = [ln.strip() for ln in texts[lib.name].splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "entry function" in ln]
         log("build", source=str(lib.source.relative_to(REPO)), ptxas=ptxas,
             seconds_all=seconds)
 
@@ -194,6 +224,66 @@ EDGE_SCENES = (
 )
 
 
+def projection_edge_scene(height: int = 128, width: int = 160,
+                          dist: float = 2.5):
+    """Gaussians at the projection's edge cases, as numpy float32 (xyz,
+    scaling, rotation) with the camera (w2c, K, height, width): a 60-degree
+    camera at ``dist`` looking down +z. Rows: around and behind the near
+    plane z_cam = 0.2; past the 1.3 tan(fov / 2) clamp on both sides of both
+    axes; one huge scale axis, where a c - b^2 cancels to det <= 0 in fp32;
+    quaternions far from unit norm; and on the optical axis with the
+    identity rotation, scales that put 3 sqrt(lambda_max) at the integers
+    2..40, each nudged by -4..4 ulp."""
+    f = 0.5 * width / np.tan(np.radians(30.0))
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]],
+                 np.float32)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[2, 3] = dist
+    rng = np.random.RandomState(5)
+
+    def unit_q(n):
+        q = rng.normal(size=(n, 4))
+        return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+    rows = []
+    z_cam = np.array([-1.0, 0.0, 0.1, 0.19999, 0.2, 0.20001, 0.25, 0.5])
+    n = len(z_cam)
+    rows.append((np.stack([rng.uniform(-0.05, 0.05, n),
+                           rng.uniform(-0.05, 0.05, n), z_cam - dist], 1),
+                 rng.uniform(0.005, 0.05, (n, 3)), unit_q(n)))
+    lim = 1.3 * np.tan(np.radians(30.0))
+    ratios = np.array([-3.0, -1.5, -1.01, 1.01, 1.5, 3.0]) * lim
+    for axis in (0, 1):
+        xyz = np.zeros((len(ratios), 3))
+        xyz[:, axis] = 2.0 * ratios
+        xyz[:, 2] = 2.0 - dist
+        rows.append((xyz, rng.uniform(0.02, 0.2, (len(ratios), 3)),
+                     unit_q(len(ratios))))
+    n = 64
+    huge = np.zeros((n, 3))
+    huge[:, 0] = 10.0 ** rng.uniform(3.0, 5.0, n)
+    rows.append((np.stack([rng.uniform(-0.3, 0.3, n),
+                           rng.uniform(-0.3, 0.3, n), np.zeros(n)], 1),
+                 huge, unit_q(n)))
+    n = 16
+    rows.append((rng.uniform(-0.3, 0.3, (n, 3)),
+                 rng.uniform(0.005, 0.05, (n, 3)),
+                 unit_q(n) * np.repeat([1e-3, 1e-1, 10.0, 1e3], 4)[:, None]))
+    # a = (sx f / z)^2 + 0.3 is lambda_max while c stays near 0.3
+    k, j = (a.ravel() for a in np.meshgrid(np.arange(2, 41), np.arange(-4, 5),
+                                           indexing="ij"))
+    n = len(k)
+    sx = dist / f * np.sqrt((k / 3.0) ** 2 - 0.3) * (1.0 + j * 2.0 ** -23)
+    q = np.zeros((n, 4))
+    q[:, 0] = 1.0
+    rows.append((np.zeros((n, 3)),
+                 np.stack([sx, np.full(n, 1e-4), np.full(n, 1e-4)], 1), q))
+    xyz, scaling, rotation = (
+        np.concatenate([r[i] for r in rows]).astype(np.float32)
+        for i in range(3))
+    return xyz, scaling, rotation, w2c, K, height, width
+
+
 def phase_edges() -> None:
     """K1 against its twin at shapes the main path does not reach."""
     for label, kwargs, needs in EDGE_SCENES:
@@ -207,6 +297,16 @@ def phase_edges() -> None:
         if not holds:
             raise AssertionError(f"edge scene {label} lacks {needs}")
         check_composite(label, inputs, reps=2)
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    fp32 operations over its peak, whichever is larger."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": n_bytes, "fp32_ops": n_ops}
 
 
 def check_composite(label: str, inputs, reps: int = 20) -> dict:
@@ -240,8 +340,6 @@ def check_composite(label: str, inputs, reps: int = 20) -> dict:
     bytes_moved = (4 * (inputs.tile_range.numel() + n_pairs)
                    + 4 * inputs.attrs.numel()
                    + 16 * inputs.height * inputs.width)
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
     row = {"scene": label, "canvas": [inputs.height, inputs.width],
            "gaussians": n_gauss, "n_pairs": n_pairs,
            "tiles": tile_pairs.numel(),
@@ -249,9 +347,7 @@ def check_composite(label: str, inputs, reps: int = 20) -> dict:
            "max_tile_pairs": int(tile_pairs.max()),
            "max_abs_err_rgb": err["rgb"], "max_abs_err_final_t": err["final_t"],
            "pixels_over_tol": bad, "final_t_gate_flips": flipped,
-           "ms": ms, "plain_ms": plain_ms, "fp32_ops": n_ops,
-           "bytes": bytes_moved, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "ms": ms, "plain_ms": plain_ms, **bound(bytes_moved, n_ops),
            "check_launches": rc.composite_forward.launches - launches_before}
     log("kernel_vs_plain", **row)
     if bad:
@@ -370,12 +466,6 @@ def check_gradients(label: str, inputs, reps: int = 20) -> dict:
     seg_bytes = 4 * n_pairs + 4 * vals.numel() + 4 * 9 * n
     seg_ops = vals.numel()
 
-    def bound(n_bytes, n_ops):
-        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
-        return {"bound_ms": max(t_bytes, t_ops),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
     row = {"scene": label, "canvas": [h, w], "gaussians": n,
            "n_pairs": n_pairs,
            "training_mode_bit_identical": bit_identical,
@@ -387,10 +477,9 @@ def check_gradients(label: str, inputs, reps: int = 20) -> dict:
            "k1_render_ms": render_ms,
            "k1_train_ms": fwd_ms, "k1_train_plain_ms": fwd_plain_ms,
            "k2_ms": bwd_ms, "k2_plain_ms": bwd_plain_ms,
-           "k2_fp32_ops": bwd_ops, "k2_bytes": bwd_bytes,
            **{f"k2_{k}": v for k, v in bound(bwd_bytes, bwd_ops).items()},
            "k3_ms": seg_ms, "k3_plain_ms": seg_plain_ms,
-           "k3_library_ms": seg_library_ms, "k3_bytes": seg_bytes,
+           "k3_library_ms": seg_library_ms,
            **{f"k3_{k}": v for k, v in bound(seg_bytes, seg_ops).items()}}
     log("grad_vs_plain", **row)
     bad = [f"{k}: {v['over_tol']} over tolerance"
@@ -410,6 +499,273 @@ def check_gradients(label: str, inputs, reps: int = 20) -> dict:
 def phase_edge_gradients() -> None:
     for label, kwargs, _ in EDGE_SCENES:
         check_gradients(label, scene_inputs(**kwargs), reps=2)
+
+
+def elementwise_ops(fn, n: int) -> int:
+    """The operations of a twin written on (N,) vectors: n for every
+    PyTorch call in ``fn`` that gives a (N,) tensor, indexing excluded.
+    The projection kernels repeat their twins op for op, so this counts
+    the kernels' operations too."""
+    from torch.overrides import TorchFunctionMode
+    count = [0]
+
+    class Count(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is not torch.Tensor.__getitem__ \
+                    and isinstance(out, torch.Tensor) and out.shape == (n,):
+                count[0] += n
+            return out
+
+    with Count():
+        fn()
+    return count[0]
+
+
+def check_projection(label: str, xyz, scaling, rotation, camera,
+                     reps: int = 20) -> dict:
+    """K4's forward and adjoint kernels against their twins on the card at
+    one camera; raises on disagreement. Radius and visible must be equal,
+    mean2d, depth and conic within ATOL + RTOL * |ref| on visible rows, the
+    gradients within GRAD_ATOL * scale + GRAD_RTOL * |ref| and exactly 0 on
+    rows that are not visible. Beside them the default route: the plain
+    projection of ops/projection.py and its autograd backward."""
+    from guassianhand_tpu_torch.ops import projection_cuda as pc
+    from guassianhand_tpu_torch.ops.projection import project_gaussians
+    n = xyz.shape[0]
+    cs = pc.camera_consts(camera)
+    args = (xyz, scaling, rotation, cs)
+    rng = np.random.RandomState(2)
+    g_m2 = torch.as_tensor(rng.normal(size=(n, 2)).astype(np.float32),
+                           device="cuda")
+    g_co = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                           device="cuda")
+    before = (pc.project_forward.launches, pc.project_backward.launches)
+    got = pc.project_forward(*args)
+    want = pc.project_plain(*args)
+    g_got = pc.project_backward(*args, g_m2, g_co)
+    g_want = pc.project_adjoint_plain(*args, g_m2, g_co)
+    torch.cuda.synchronize()
+    vis = want[4]
+    row = {"scene": label, "gaussians": n, "visible": int(vis.sum()),
+           "visible_mismatch": int((got[4] != want[4]).sum()),
+           "radius_mismatch": int((got[3] != want[3]).sum()),
+           "det_le_0_in_front": int(((pc._fwd_math(
+               cs, *pc._columns(xyz, scaling, rotation))["det"] <= 0)
+               & (want[1] > 0.2)).sum())}
+    over = {}
+    for name, a, b in zip(("mean2d", "depth", "conic"), got[:3], want[:3]):
+        a, b = a[vis], b[vis]
+        row[f"{name}_max_abs_err"] = float((a - b).abs().max()) if n else 0.0
+        over[name] = int(((a - b).abs() > ATOL + RTOL * b.abs()).sum())
+    for name, a, b in zip(("xyz", "scaling", "rotation"), g_got, g_want):
+        scale = float(b.abs().max()) if n else 0.0
+        diff = (a - b).abs()
+        row[f"grad_{name}_max_abs_err"] = float(diff.max()) if n else 0.0
+        row[f"grad_{name}_scale"] = scale
+        over[f"grad_{name}"] = int((diff > GRAD_ATOL * scale
+                                    + GRAD_RTOL * b.abs()).sum())
+        over[f"grad_{name}_not_visible"] = int((a[~vis] != 0).sum())
+    row["over_tol"] = over
+    row["check_launches"] = [pc.project_forward.launches - before[0],
+                             pc.project_backward.launches - before[1]]
+
+    def default_route():
+        leaves = [t.detach().requires_grad_()
+                  for t in (xyz, scaling, rotation)]
+        p = project_gaussians(*leaves, camera)
+        torch.autograd.grad([p.mean2d, p.conic], leaves, [g_m2, g_co])
+
+    row["fwd_ms"] = time_cuda(lambda: pc.project_forward(*args), reps=reps)
+    row["bwd_ms"] = time_cuda(lambda: pc.project_backward(*args, g_m2, g_co),
+                              reps=reps)
+    row["fwd_plain_ms"] = time_cuda(lambda: pc.project_plain(*args), reps=3)
+    row["bwd_plain_ms"] = time_cuda(
+        lambda: pc.project_adjoint_plain(*args, g_m2, g_co), reps=3)
+    row["default_route_fwd_bwd_ms"] = time_cuda(default_route, reps=3)
+    fwd_bytes = 40 * n + 4 * cs.numel() + 29 * n
+    bwd_bytes = 60 * n + 4 * cs.numel() + 40 * n
+    fwd_ops = elementwise_ops(lambda: pc.project_plain(*args), n)
+    bwd_ops = elementwise_ops(
+        lambda: pc.project_adjoint_plain(*args, g_m2, g_co), n)
+    row["fwd_bound"] = bound(fwd_bytes, fwd_ops)
+    row["bwd_bound"] = bound(bwd_bytes, bwd_ops)
+    log("projection_vs_plain", **row)
+    bad = {k: v for k, v in over.items() if v}
+    if bad or row["visible_mismatch"] or row["radius_mismatch"]:
+        raise AssertionError(f"projection kernels disagree with their twins "
+                             f"at {label}: {bad}, visible "
+                             f"{row['visible_mismatch']}, radius "
+                             f"{row['radius_mismatch']}")
+    return row
+
+
+def phase_projection_scenes() -> None:
+    """K4 at the bench scene and the edge scene."""
+    from guassianhand_tpu_torch.core.camera import Camera
+    rng = np.random.RandomState(0)
+    n, hw = 49152, 512
+    xyz = rng.uniform(-0.5, 0.5, (n, 3))
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    scaling = rng.uniform(0.002, 0.01, (n, 3))
+    f = 1.1 * hw
+    K = np.array([[f, 0, hw / 2], [0, f, hw / 2], [0, 0, 1]], np.float32)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[2, 3] = 1.8
+    cuda = [torch.as_tensor(a.astype(np.float32), device="cuda")
+            for a in (xyz, scaling, q)]
+    check_projection("bench_512_49152", *cuda,
+                     Camera.from_w2c(w2c, K, hw, hw, device="cuda"))
+    xyz, scaling, rotation, w2c, K, h, w = projection_edge_scene()
+    row = check_projection(
+        "edge", *(torch.as_tensor(a, device="cuda")
+                  for a in (xyz, scaling, rotation)),
+        Camera.from_w2c(w2c, K, h, w, device="cuda"), reps=2)
+    if row["det_le_0_in_front"] == 0 or row["visible"] == row["gaussians"]:
+        raise AssertionError(f"the edge scene lacks det <= 0 or culled "
+                             f"rows: {row}")
+
+
+def attention_bounds(n_live: int, heads: int, d: int) -> dict:
+    """Bytes and fp32 operations of the three kernels over L live rows:
+    per score, forward 4 D + 4 (two D-long products, the scale, the max,
+    exp and the sum), dkv 8 D + 5, dq 6 D + 5."""
+    rows, scores = n_live * heads, n_live * n_live * heads
+    return {"forward": bound(4 * (4 * rows * d + rows), (4 * d + 4) * scores),
+            "dkv": bound(4 * (6 * rows * d + 2 * rows), (8 * d + 5) * scores),
+            "dq": bound(4 * (5 * rows * d + 2 * rows), (6 * d + 5) * scores)}
+
+
+def check_attention(label: str, q, k, v, mask, reps: int = 5,
+                    timed: bool = True) -> dict:
+    """K5's forward, dkv and dq kernels against their twins on the card,
+    over the live rows of ``mask`` (N,) (all rows if None); raises on
+    disagreement. out within ATOL + RTOL * |ref|, dq/dk/dv within
+    ATTN_GRAD_ATOL * scale (scale the largest |gradient| of the three
+    arrays: with one live row dq is 0 up to rounding), and through
+    ``flash_attention`` masked rows exactly 0 in the output and in every
+    gradient. The kernel's and the twin's outputs are also held against a
+    float64 evaluation, to show which rounds further. Beside them the
+    default chunked route and torch's scaled_dot_product_attention with the
+    same key mask, each forward + backward."""
+    import torch.nn.functional as F
+
+    from guassianhand_tpu_torch.ops import flash_attention_cuda as fa
+    from guassianhand_tpu_torch.ops.blockwise_attention import \
+        blockwise_attention
+    n, h, d = q.shape
+    live = (torch.arange(n, device="cuda") if mask is None
+            else mask.nonzero()[:, 0])
+    L = live.numel()
+    ql, kl, vl = (t[live].contiguous() for t in (q, k, v))
+    dout = torch.as_tensor(np.random.RandomState(3).normal(
+        size=(n, h, d)).astype(np.float32), device="cuda")
+    dol = dout[live].contiguous()
+    before = [fa.flash_forward.launches, fa.flash_backward_dkv.launches,
+              fa.flash_backward_dq.launches]
+    out, lse = fa.flash_forward(ql, kl, vl)
+    out_p, lse_p = fa.flash_attention_plain(ql, kl, vl)
+    delta = fa.attention_delta(out, dol)
+    dk, dv = fa.flash_backward_dkv(ql, kl, vl, dol, lse, delta)
+    dq = fa.flash_backward_dq(ql, kl, vl, dol, lse, delta)
+    grads_p = fa.flash_attention_backward_plain(ql, kl, vl, out_p, lse_p, dol)
+    # the whole masked route, as the model calls it
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    full = fa.flash_attention(*leaves, mask)
+    full_grads = torch.autograd.grad(full, leaves, dout)
+    torch.cuda.synchronize()
+    out_64 = fa.flash_attention_plain(*(t.double() for t in (ql, kl, vl)))[0]
+    row = {"scene": label, "n": n, "heads": h, "head_dim": d, "live": L,
+           "out_abs_max": float(out_p.abs().max()) if L else 0.0,
+           "out_max_abs_err": float((out - out_p).abs().max()) if L else 0.0,
+           "out_vs_fp64_max_abs_err": {
+               "kernel": float((out - out_64).abs().max()) if L else 0.0,
+               "twin": float((out_p - out_64).abs().max()) if L else 0.0},
+           "lse_max_abs_err": float((lse - lse_p).abs().max()) if L else 0.0,
+           "out_over_atol_alone": int(((out - out_p).abs() > ATOL).sum())}
+    over = {"out": int(((out - out_p).abs() > ATOL + RTOL * out_p.abs())
+                       .sum())}
+    scale = max(float(g.abs().max()) for g in grads_p) if L else 0.0
+    row["grad_scale"] = scale
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_p):
+        diff = (a - b).abs()
+        row[f"{name}_max_abs_err"] = float(diff.max()) if L else 0.0
+        over[name] = int((diff > ATTN_GRAD_ATOL * scale).sum())
+    masked = (torch.ones(n, dtype=torch.bool, device="cuda") if mask is None
+              else ~mask)
+    masked[live] = False
+    over["masked_rows_nonzero"] = int(
+        sum((t[masked] != 0).sum() for t in (full, *full_grads)))
+    over["route_vs_kernel"] = int((full[live] != out).sum())
+    row["over_tol"] = over
+    row["check_launches"] = [fa.flash_forward.launches - before[0],
+                             fa.flash_backward_dkv.launches - before[1],
+                             fa.flash_backward_dq.launches - before[2]]
+    if timed:
+        def default_route():
+            lv = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = blockwise_attention(*lv, mask, flash=False)
+            torch.autograd.grad(o, lv, dout)
+
+        qh, kh, vh = (t.transpose(0, 1)[None].contiguous() for t in (q, k, v))
+        key_mask = None if mask is None else mask[None, None, None, :]
+        sdpa_leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+        do_h = dout.transpose(0, 1)[None].contiguous()
+
+        def sdpa_forward():
+            return F.scaled_dot_product_attention(*sdpa_leaves,
+                                                  attn_mask=key_mask)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_forward(), sdpa_leaves, do_h)
+
+        sdpa_out = sdpa_forward()[0].transpose(0, 1)[live]
+        row["sdpa_vs_kernel_max_abs_err"] = float(
+            (sdpa_out.detach() - out).abs().max())
+        row["fwd_ms"] = time_cuda(lambda: fa.flash_forward(ql, kl, vl), reps)
+        row["dkv_ms"] = time_cuda(lambda: fa.flash_backward_dkv(
+            ql, kl, vl, dol, lse, delta), reps)
+        row["dq_ms"] = time_cuda(lambda: fa.flash_backward_dq(
+            ql, kl, vl, dol, lse, delta), reps)
+        row["fwd_plain_ms"] = time_cuda(
+            lambda: fa.flash_attention_plain(ql, kl, vl), reps=1, warmup=1)
+        row["bwd_plain_ms"] = time_cuda(
+            lambda: fa.flash_attention_backward_plain(
+                ql, kl, vl, out_p, lse_p, dol), reps=1, warmup=1)
+        row["default_route_fwd_bwd_ms"] = time_cuda(default_route, reps=2,
+                                                    warmup=1)
+        row["sdpa_fwd_ms"] = time_cuda(sdpa_forward, reps)
+        row["sdpa_fwd_bwd_ms"] = time_cuda(sdpa_fwd_bwd, reps)
+        row["bounds"] = attention_bounds(L, h, d)
+    log("attention_vs_plain", **row)
+    bad = {k: v for k, v in over.items() if v}
+    if bad:
+        raise AssertionError(f"attention kernels disagree with their twins "
+                             f"at {label}: {bad}")
+    return row
+
+
+def phase_attention_edges() -> None:
+    """K5 at shapes the main path does not reach: one live row, every row
+    live, no mask, no live row, and N and L that no block divides."""
+    rng = np.random.RandomState(4)
+    n = 77
+
+    def qkv(heads=4):
+        return [torch.as_tensor(rng.normal(size=(n, heads, 32)).astype(
+            np.float32), device="cuda") for _ in range(3)]
+
+    one = torch.zeros(n, dtype=torch.bool, device="cuda")
+    one[40] = True
+    cases = (("one_live_77", one),
+             ("all_live_77", torch.ones(n, dtype=torch.bool, device="cuda")),
+             ("no_mask_77", None),
+             ("none_live_77", torch.zeros(n, dtype=torch.bool, device="cuda")),
+             ("ragged_77", torch.as_tensor(rng.uniform(size=n) < 0.6,
+                                           device="cuda")))
+    for label, mask in cases:
+        check_attention(label, *qkv(), mask, timed=False)
 
 
 def phase_raster_fwd_bwd() -> dict:
@@ -464,27 +820,27 @@ def phase_raster_fwd_bwd() -> dict:
     return row
 
 
-def phase_slice():
-    """R requests of V views of the full-width avatar; returns the last
-    request's composite inputs (the avatar's projected Gaussians) and the
-    measured numbers."""
+def phase_slice(kernels: bool = False):
+    """R requests of V views of the full-width avatar, on the default route
+    or with both kernel switches on; returns the last request's composite
+    inputs (the avatar's projected Gaussians) and the launch counts."""
     from guassianhand_tpu_torch.cli.render_360 import (MODEL_CONFIG,
                                                        orbit_batch,
                                                        render_request)
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                        synthetic_batch)
     from guassianhand_tpu_torch.models.one_shot import build_model
-    from guassianhand_tpu_torch.ops import rasterize_cuda as rc
     from guassianhand_tpu_torch.ops.rasterize import multiview_composite_inputs
 
-    cfg = MODEL_CONFIG
+    route = "kernels" if kernels else "default"
+    cfg = kernel_config(MODEL_CONFIG, kernels)
     t0 = time.perf_counter()
     scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
                                      width=HW, device="cuda")
     model = build_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log("slice_setup", seconds=time.perf_counter() - t0,
+    log("slice_setup", route=route, seconds=time.perf_counter() - t0,
         n_points=scene.n_points, gaussian_slots=2 * scene.n_points,
         params=n_params)
 
@@ -498,49 +854,54 @@ def phase_slice():
         torch.cuda.synchronize()
         return batch, out, (t_b - t_a) * 1e3, (time.perf_counter() - t_b) * 1e3
 
-    request(1000)                                  # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    results = [request(r) for r in range(REQUESTS)]
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    rows = []
-    for r, (batch, out, batch_ms, model_ms) in enumerate(results):
-        rgb, mask = out["comp_rgb"], out["comp_mask"]
-        row = {"request": r, "batch_ms": batch_ms, "model_ms": model_ms,
-               "n_pairs": int(out["n_pairs"][0]),
-               "interacting": int(batch["inter_mask"].sum()),
-               "comp_mask_mean": float(mask.mean()),
-               "comp_rgb_mean": float(rgb.mean()),
-               "finite": bool(torch.isfinite(rgb).all()
-                              and torch.isfinite(mask).all()),
-               "shape": list(rgb.shape)}
-        log("request", **row)
-        rows.append(row)
-        if not row["finite"] or row["shape"] != [1, VIEWS, HW, HW, 3]:
-            raise AssertionError(f"request {r}: bad output {row}")
-        if not 0.0 < row["comp_mask_mean"] < 1.0:
-            raise AssertionError(f"request {r}: empty or full render {row}")
-    log("slice", requests=REQUESTS, views=VIEWS,
-        model_ms=[x["model_ms"] for x in rows],
-        model_ms_mean=float(np.mean([x["model_ms"] for x in rows])),
-        launches=launches, peak_bytes=peak)
-    if launches["composite_forward"] == 0:
-        raise AssertionError("the slice ran without launching "
-                             "composite_forward")
-    if launches["composite_backward"] or launches["segment_reduce_sorted"]:
-        raise AssertionError(f"rendering launched a backward kernel: "
-                             f"{launches}")
-    batch, out = results[-1][0], results[-1][1]
-    phase_profile(lambda: request(REQUESTS),
-                  lambda: model.features(batch), rows)
+    want = SERVE_KERNELS if kernels else ("composite_forward",)
+    with flash_switch(kernels):
+        request(1000)                                  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        results = []
+        for r in range(REQUESTS):
+            counts = read_launches()
+            results.append(request(r))
+            check_launches(f"request {r} ({route})",
+                           {k: v - counts[k]
+                            for k, v in read_launches().items()}, want)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        rows = []
+        for r, (batch, out, batch_ms, model_ms) in enumerate(results):
+            rgb, mask = out["comp_rgb"], out["comp_mask"]
+            row = {"route": route, "request": r, "batch_ms": batch_ms,
+                   "model_ms": model_ms, "n_pairs": int(out["n_pairs"][0]),
+                   "interacting": int(batch["inter_mask"].sum()),
+                   "comp_mask_mean": float(mask.mean()),
+                   "comp_rgb_mean": float(rgb.mean()),
+                   "finite": bool(torch.isfinite(rgb).all()
+                                  and torch.isfinite(mask).all()),
+                   "shape": list(rgb.shape)}
+            log("request", **row)
+            rows.append(row)
+            if not row["finite"] or row["shape"] != [1, VIEWS, HW, HW, 3]:
+                raise AssertionError(f"request {r}: bad output {row}")
+            if not 0.0 < row["comp_mask_mean"] < 1.0:
+                raise AssertionError(f"request {r}: empty or full render "
+                                     f"{row}")
+        log("slice", route=route, requests=REQUESTS, views=VIEWS,
+            model_ms=[x["model_ms"] for x in rows],
+            model_ms_mean=float(np.mean([x["model_ms"] for x in rows])),
+            launches=launches, peak_bytes=peak)
+        check_launches(f"the serving slice ({route})", launches, want)
+        batch, out = results[-1][0], results[-1][1]
+        if not kernels:
+            phase_profile(lambda: request(REQUESTS),
+                          lambda: model.features(batch), rows)
     gs = out["3dgs"][0]
     rcfg = cfg.renderer
     inputs = multiview_composite_inputs(
         gs, batch["w2c_render"][0], batch["K_render"][0], height=HW,
         width=HW, sh_degree=rcfg.sh_degree, use_rgb=rcfg.use_rgb,
         config=rcfg.raster)
-    return inputs, launches["composite_forward"]
+    return inputs, launches
 
 
 def _device_us(event) -> float:
@@ -591,11 +952,58 @@ def read_launches() -> dict:
 
 
 def launch_counters() -> dict:
+    from guassianhand_tpu_torch.ops import flash_attention_cuda as fa
+    from guassianhand_tpu_torch.ops import projection_cuda as pc
     from guassianhand_tpu_torch.ops import rasterize_cuda as rc
     from guassianhand_tpu_torch.ops import segreduce_cuda as sr
     return {"composite_forward": rc.composite_forward,
             "composite_backward": rc.composite_backward,
-            "segment_reduce_sorted": sr.segment_reduce_sorted}
+            "segment_reduce_sorted": sr.segment_reduce_sorted,
+            "project_forward": pc.project_forward,
+            "project_backward": pc.project_backward,
+            "flash_forward": fa.flash_forward,
+            "flash_backward_dkv": fa.flash_backward_dkv,
+            "flash_backward_dq": fa.flash_backward_dq}
+
+
+# the kernels each route launches: the default route's three, and with both
+# switches on all eight
+DEFAULT_ROUTE = ("composite_forward", "composite_backward",
+                 "segment_reduce_sorted")
+SERVE_KERNELS = ("composite_forward", "project_forward", "flash_forward")
+
+
+def kernel_config(cfg, kernels: bool):
+    """``cfg`` (a OneShotConfig) with projection_impl "pallas" when
+    ``kernels``, else as it is."""
+    if not kernels:
+        return cfg
+    r = cfg.renderer
+    return dataclasses.replace(cfg, renderer=dataclasses.replace(
+        r, raster=dataclasses.replace(r.raster, projection_impl="pallas")))
+
+
+@contextlib.contextmanager
+def flash_switch(on: bool):
+    """GH_FLASH_ATTN=1 while ``on``, else 0; restored afterwards."""
+    saved = os.environ.get("GH_FLASH_ATTN")
+    os.environ["GH_FLASH_ATTN"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("GH_FLASH_ATTN", None)
+        else:
+            os.environ["GH_FLASH_ATTN"] = saved
+
+
+def check_launches(label: str, launches: dict, want: tuple) -> None:
+    """Every kernel in ``want`` launched, every other one not."""
+    missing = [k for k in want if launches[k] == 0]
+    extra = [k for k, v in launches.items() if v and k not in want]
+    if missing or extra:
+        raise AssertionError(f"{label}: kernels not launched {missing}, "
+                             f"launched off the route {extra}: {launches}")
 
 
 def fit_model_and_step(cfg, hw: int, batch, device: str):
@@ -617,92 +1025,144 @@ def fit_model_and_step(cfg, hw: int, batch, device: str):
     return model, step, attach_static_features(model, batch), fit_cfg
 
 
-def phase_fit():
+def phase_fit(kernels: bool = False) -> dict:
     """The slice: the full-width one-shot fit at bench_fit_step's workload
     (778-vertex hands subdivided twice, 15,404 points, 256^2, vgg 0.1,
-    fp32). One warm-up step, then FIT_STEPS steps with the launch counts
-    zeroed just before and read just after. Returns the fit's own composite
-    inputs (the fitted avatar's Gaussians in the fit view) and the
-    launches."""
+    fp32), on the default route or with both kernel switches on. One
+    warm-up step, then FIT_STEPS steps with the launch counts zeroed just
+    before and read just after. Returns the launches, the step rows, the
+    warm-up loss (the parameters' first, before any update) and the fitted
+    avatar's inputs of the kernels: its composite inputs in the fit view,
+    its Gaussians and camera, and the interaction attention's q, k, v and
+    mask."""
     from guassianhand_tpu_torch.cli.render_360 import MODEL_CONFIG
+    from guassianhand_tpu_torch.core.camera import Camera
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                        synthetic_batch)
     from guassianhand_tpu_torch.models.one_shot import no_tf32
+    from guassianhand_tpu_torch.nn import heads
     from guassianhand_tpu_torch.ops.rasterize import multiview_composite_inputs
     from guassianhand_tpu_torch.train.fit import trainable_mask
+    route = "kernels" if kernels else "default"
+    cfg = kernel_config(MODEL_CONFIG, kernels)
     t0 = time.perf_counter()
     scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
                                      width=HW, device="cuda")
     batch = synthetic_batch(scene, seed=0, with_target=True)
-    model, step, batch, fit_cfg = fit_model_and_step(MODEL_CONFIG, HW, batch,
-                                                     "cuda")
+    model, step, batch, fit_cfg = fit_model_and_step(cfg, HW, batch, "cuda")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     trainable = trainable_mask(model)
     torch.cuda.synchronize()
-    log("fit_setup", seconds=time.perf_counter() - t0,
+    log("fit_setup", route=route, seconds=time.perf_counter() - t0,
         n_points=scene.n_points, gaussian_slots=2 * scene.n_points,
         target_mask_mean=float(batch["target_mask"].mean()),
         trainable=sorted(n for n, t in trainable.items() if t),
         trainable_params=sum(p.numel() for n, p in model.named_parameters()
                              if trainable[n]),
         params=sum(p.numel() for p in model.parameters()))
-    step(batch)                                    # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    rows = []
-    for i in range(FIT_STEPS):
-        t = time.perf_counter()
-        counts = read_launches()
-        loss, err = step(batch)
+    with flash_switch(kernels):
+        warmup_loss = float(step(batch)[0])
         torch.cuda.synchronize()
-        row = {"step": i, "ms": (time.perf_counter() - t) * 1e3,
-               "loss": float(loss), **{k: float(v) for k, v in err.items()},
-               "launches": {k: v - counts[k]
-                            for k, v in read_launches().items()}}
-        log("fit_step", **row)
-        rows.append(row)
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    frozen_changed = [n for n, p in model.named_parameters()
-                      if not trainable[n] and not torch.equal(p, before[n])]
-    moved = sorted(n for n, p in model.named_parameters()
-                   if trainable[n] and not torch.equal(p, before[n]))
-    busy_ms, top = device_profile(lambda: step(batch))
-    ms = [r["ms"] for r in rows]
-    log("fit", steps=FIT_STEPS, ms_per_step=ms,
-        ms_per_step_mean=float(np.mean(ms)),
-        device_busy_ms_profiled_step=busy_ms,
-        device_busy_share=busy_ms / float(np.mean(ms)), top_device_ms=top,
-        losses=[r["loss"] for r in rows], launches=launches, peak_bytes=peak,
-        moved=moved, frozen_changed=frozen_changed)
-    if not all(math.isfinite(r["loss"]) for r in rows):
-        raise AssertionError("the fit gave a non-finite loss")
-    if frozen_changed:
-        raise AssertionError(f"frozen parameters changed: {frozen_changed}")
-    want_moved = {"identity_code_one_shot", "map_bias", "color_w", "color_b",
-                  "opacity_b"}
-    if not want_moved <= set(moved):
-        raise AssertionError(f"trainable maps that did not move: "
-                             f"{sorted(want_moved - set(moved))}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"the fit skipped a kernel: {launches}")
-    with torch.no_grad(), no_tf32():
-        gs = model(batch, HW, HW)["3dgs"][0]
-    rcfg = MODEL_CONFIG.renderer
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        rows = []
+        for i in range(FIT_STEPS):
+            t = time.perf_counter()
+            counts = read_launches()
+            loss, err = step(batch)
+            torch.cuda.synchronize()
+            row = {"route": route, "step": i,
+                   "ms": (time.perf_counter() - t) * 1e3, "loss": float(loss),
+                   **{k: float(v) for k, v in err.items()},
+                   "launches": {k: v - counts[k]
+                                for k, v in read_launches().items()}}
+            log("fit_step", **row)
+            rows.append(row)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        frozen_changed = [n for n, p in model.named_parameters()
+                          if not trainable[n]
+                          and not torch.equal(p, before[n])]
+        moved = sorted(n for n, p in model.named_parameters()
+                       if trainable[n] and not torch.equal(p, before[n]))
+        busy_ms, top = device_profile(lambda: step(batch))
+        ms = [r["ms"] for r in rows]
+        log("fit", route=route, steps=FIT_STEPS, ms_per_step=ms,
+            ms_per_step_mean=float(np.mean(ms)),
+            device_busy_ms_profiled_step=busy_ms,
+            device_busy_share=busy_ms / float(np.mean(ms)),
+            top_device_ms=top, warmup_loss=warmup_loss,
+            losses=[r["loss"] for r in rows], launches=launches,
+            peak_bytes=peak, moved=moved, frozen_changed=frozen_changed)
+        if not all(math.isfinite(r["loss"]) for r in rows):
+            raise AssertionError("the fit gave a non-finite loss")
+        if frozen_changed:
+            raise AssertionError(f"frozen parameters changed: "
+                                 f"{frozen_changed}")
+        want_moved = {"identity_code_one_shot", "map_bias", "color_w",
+                      "color_b", "opacity_b"}
+        if not want_moved <= set(moved):
+            raise AssertionError(f"trainable maps that did not move: "
+                                 f"{sorted(want_moved - set(moved))}")
+        check_launches(f"the fit ({route})", launches,
+                       tuple(launch_counters()) if kernels else DEFAULT_ROUTE)
+        # one more forward, with the interaction attention's inputs kept
+        captured = []
+        attend = heads.blockwise_attention
+
+        def keep(q, k, v, mask=None, **kw):
+            captured.append((q.detach().contiguous(), k.detach().contiguous(),
+                             v.detach().contiguous(), mask))
+            return attend(q, k, v, mask, **kw)
+
+        heads.blockwise_attention = keep
+        try:
+            with torch.no_grad(), no_tf32():
+                gs = model(batch, HW, HW)["3dgs"][0]
+        finally:
+            heads.blockwise_attention = attend
+    rcfg = cfg.renderer
+    w2c, K = batch["w2c_render"][0], batch["K_render"][0]
     inputs = multiview_composite_inputs(
-        gs, batch["w2c_render"][0], batch["K_render"][0], height=HW,
-        width=HW, sh_degree=rcfg.sh_degree, use_rgb=rcfg.use_rgb,
-        config=rcfg.raster)
-    return inputs, launches, rows
+        gs, w2c, K, height=HW, width=HW, sh_degree=rcfg.sh_degree,
+        use_rgb=rcfg.use_rgb, config=rcfg.raster)
+    return {"inputs": inputs, "launches": launches, "rows": rows,
+            "warmup_loss": warmup_loss, "gaussians": gs,
+            "camera": Camera.from_w2c(w2c[0], K[0], HW, HW, device="cuda"),
+            "attention": captured[0]}
 
 
-def phase_fit_reference() -> None:
+def phase_fit_routes() -> tuple:
+    """The fit on the default route, then with both switches on; their
+    step times and losses side by side. The warm-up step of each sees the
+    same seeded parameters, so its losses agree within rtol 1e-5."""
+    default = phase_fit(kernels=False)
+    kernels = phase_fit(kernels=True)
+    a, b = default["warmup_loss"], kernels["warmup_loss"]
+    rel = abs(a - b) / abs(a)
+    log("fit_routes", warmup_loss={"default": a, "kernels": b},
+        warmup_loss_rel=rel,
+        ms_per_step={"default": [r["ms"] for r in default["rows"]],
+                     "kernels": [r["ms"] for r in kernels["rows"]]},
+        ms_per_step_mean={k: float(np.mean([r["ms"] for r in x["rows"]]))
+                          for k, x in (("default", default),
+                                       ("kernels", kernels))},
+        losses={"default": [r["loss"] for r in default["rows"]],
+                "kernels": [r["loss"] for r in kernels["rows"]]})
+    if rel > 1e-5:
+        raise AssertionError(f"the two routes' first losses disagree: {a} "
+                             f"against {b}")
+    return default, kernels
+
+
+def phase_fit_reference(kernels: bool = False) -> None:
     """Two fit steps of a small model with the same weights on the card and
-    on the CPU. Losses agree within rtol 1e-4 and every updated trainable
-    parameter within PARAM_ATOL: a step moves an element by about lr = 1e-2,
-    so a bound 100 times below that catches a step that went astray, and
-    it is 6 times the largest difference seen on an H100 (1.6e-5)."""
+    on the CPU, on the default route or with both kernel switches on (the
+    card's kernels against the CPU's twins). Losses agree within rtol 1e-4
+    and every updated trainable parameter within PARAM_ATOL: a step moves an
+    element by about lr = 1e-2, so a bound 100 times below that catches a
+    step that went astray, and it is 6 times the largest difference seen on
+    an H100 (1.6e-5)."""
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                        synthetic_batch)
     from guassianhand_tpu_torch.train.fit import trainable_mask
@@ -714,16 +1174,18 @@ def phase_fit_reference() -> None:
     runs = {}
     for device in ("cuda", "cpu"):
         model, step, b, _ = fit_model_and_step(
-            reference_config(), hw, {k: v.to(device) for k, v in batch.items()},
-            device)
-        losses = [float(step(b)[0]) for _ in range(2)]
+            kernel_config(reference_config(), kernels), hw,
+            {k: v.to(device) for k, v in batch.items()}, device)
+        with flash_switch(kernels):
+            losses = [float(step(b)[0]) for _ in range(2)]
         runs[device] = (losses, {n: p.detach().cpu() for n, p in
                                  model.named_parameters()
                                  if trainable_mask(model)[n]})
     (loss_c, par_c), (loss_p, par_p) = runs["cuda"], runs["cpu"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_c, loss_p))
     params = {n: float((par_c[n] - par_p[n]).abs().max()) for n in par_p}
-    log("fit_reference", losses_cuda=loss_c, losses_cpu=loss_p,
+    log("fit_reference", kernels=kernels, losses_cuda=loss_c,
+        losses_cpu=loss_p,
         loss_max_rel=loss_rel, params_max_abs=params, bound=PARAM_ATOL)
     if loss_rel > 1e-4:
         raise AssertionError(f"card and CPU fit losses disagree: {loss_rel}")
@@ -732,15 +1194,16 @@ def phase_fit_reference() -> None:
         raise AssertionError(f"card and CPU fits disagree in {bad}")
 
 
-def phase_reference() -> None:
-    """A small model on the card and on the CPU with the same weights: the
-    card's kernel path must agree with the CPU's plain path."""
+def phase_reference(kernels: bool = False) -> None:
+    """A small model on the card and on the CPU with the same weights, on
+    the default route or with both kernel switches on: the card's kernel
+    path must agree with the CPU's plain path."""
     from guassianhand_tpu_torch.cli.render_360 import (orbit_batch,
                                                        render_request)
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                        synthetic_batch)
     from guassianhand_tpu_torch.models.one_shot import build_model
-    cfg = reference_config()
+    cfg = kernel_config(reference_config(), kernels)
     hw = 64
     # one batch, made on the CPU: kNN ties decide the interaction mask, so
     # both devices get the very same inputs
@@ -750,11 +1213,12 @@ def phase_reference() -> None:
     outs = {}
     for device in ("cuda", "cpu"):
         model = build_model(cfg, seed=0, device="cuda").to(device)
-        outs[device] = render_request(
-            model, {k: v.to(device) for k, v in batch.items()}, hw, hw)
+        with flash_switch(kernels):
+            outs[device] = render_request(
+                model, {k: v.to(device) for k, v in batch.items()}, hw, hw)
     diff = {k: float((outs["cuda"][k].cpu() - outs["cpu"][k]).abs().max())
             for k in ("comp_rgb", "comp_mask", "hidden")}
-    log("reference", cuda_vs_cpu_max_abs=diff)
+    log("reference", kernels=kernels, cuda_vs_cpu_max_abs=diff)
     if max(diff.values()) > 1e-4:
         raise AssertionError(f"card and CPU renders disagree: {diff}")
 
@@ -770,25 +1234,45 @@ def main() -> int:
     del bench
     phase_edges()
     phase_edge_gradients()
+    phase_projection_scenes()
+    phase_attention_edges()
     phase_raster_fwd_bwd()
     avatar_inputs, serve_launches = phase_slice()
     avatar_row = check_composite("avatar_4x256", avatar_inputs)
     del avatar_inputs
-    fit_inputs, fit_launches, _ = phase_fit()
-    fit_grad = check_gradients("fit_256", fit_inputs)
-    phase_reference()
-    phase_fit_reference()
+    _, serve_kernel_launches = phase_slice(kernels=True)
+    default_fit, kernel_fit = phase_fit_routes()
+    fit_launches = default_fit["launches"]
+    fit_grad = check_gradients("fit_256", default_fit["inputs"])
+    gs = kernel_fit["gaussians"]
+    proj = check_projection("fit_256", gs.xyz.contiguous(),
+                            gs.scaling.contiguous(), gs.rotation.contiguous(),
+                            kernel_fit["camera"])
+    attn = check_attention("fit_256", *kernel_fit["attention"][:3],
+                           kernel_fit["attention"][3])
+    kfit_launches = kernel_fit["launches"]
+    del default_fit, kernel_fit, gs
+    for kernels in (False, True):
+        phase_reference(kernels)
+        phase_fit_reference(kernels)
 
     def grad_err(row, part):
         return max(v["max_abs_err"] for v in row[part].values())
 
+    def by_path(name):
+        return {"serve": serve_launches[name],
+                "serve_with_switches": serve_kernel_launches[name],
+                "fit": fit_launches[name],
+                "fit_with_switches": kfit_launches[name]}
+
+    flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    flash_via = "via guassianhand_tpu/ops/blockwise_attention.py:40"
     kernels = [{
         "name": "composite_forward", "route": "cuda",
         "source": "guassianhand_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "guassianhand_tpu/ops/rasterize_pallas.py:395",
         "launches": fit_launches["composite_forward"],
-        "launches_by_path": {"serve": serve_launches,
-                             "fit": fit_launches["composite_forward"]},
+        "launches_by_path": by_path("composite_forward"),
         "max_abs_err": max(avatar_row["max_abs_err_rgb"],
                            avatar_row["max_abs_err_final_t"],
                            bench_row["max_abs_err_rgb"],
@@ -803,6 +1287,7 @@ def main() -> int:
         "source": "guassianhand_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "guassianhand_tpu/ops/rasterize_pallas.py:668",
         "launches": fit_launches["composite_backward"],
+        "launches_by_path": by_path("composite_backward"),
         "max_abs_err": max(fit_grad["pair_rows_max_abs_err"],
                            bench_grad["pair_rows_max_abs_err"]),
         "ms": fit_grad["k2_ms"], "plain_ms": fit_grad["k2_plain_ms"],
@@ -814,12 +1299,72 @@ def main() -> int:
         "source": "guassianhand_tpu_torch/csrc/segment_reduce.cu",
         "replaces": "guassianhand_tpu/ops/segreduce_pallas.py:137",
         "launches": fit_launches["segment_reduce_sorted"],
+        "launches_by_path": by_path("segment_reduce_sorted"),
         "max_abs_err": max(grad_err(fit_grad, "segment_reduce"),
                            grad_err(bench_grad, "segment_reduce")),
         "ms": fit_grad["k3_ms"], "plain_ms": fit_grad["k3_plain_ms"],
         "bound_ms": fit_grad["k3_bound_ms"],
         "bound_by": fit_grad["k3_bound_by"],
         "library_ms": fit_grad["k3_library_ms"],
+    }, {
+        "name": "project_forward", "route": "cuda",
+        "source": "guassianhand_tpu_torch/csrc/projection.cu",
+        "replaces": "guassianhand_tpu/ops/projection_pallas.py:152",
+        "launches": kfit_launches["project_forward"],
+        "launches_by_path": by_path("project_forward"),
+        "max_abs_err": max(proj[f"{k}_max_abs_err"]
+                           for k in ("mean2d", "depth", "conic")),
+        "ms": proj["fwd_ms"], "plain_ms": proj["fwd_plain_ms"],
+        "bound_ms": proj["fwd_bound"]["bound_ms"],
+        "bound_by": proj["fwd_bound"]["bound_by"], "library_ms": None,
+        "default_route_fwd_bwd_ms": proj["default_route_fwd_bwd_ms"],
+    }, {
+        "name": "project_backward", "route": "cuda",
+        "source": "guassianhand_tpu_torch/csrc/projection.cu",
+        "replaces": "guassianhand_tpu/ops/projection_pallas.py:166",
+        "launches": kfit_launches["project_backward"],
+        "launches_by_path": by_path("project_backward"),
+        "max_abs_err": max(proj[f"grad_{k}_max_abs_err"]
+                           for k in ("xyz", "scaling", "rotation")),
+        "ms": proj["bwd_ms"], "plain_ms": proj["bwd_plain_ms"],
+        "bound_ms": proj["bwd_bound"]["bound_ms"],
+        "bound_by": proj["bwd_bound"]["bound_by"], "library_ms": None,
+        "default_route_fwd_bwd_ms": proj["default_route_fwd_bwd_ms"],
+    }, {
+        "name": "flash_forward", "route": "cuda",
+        "source": "guassianhand_tpu_torch/csrc/flash_attention.cu",
+        "replaces": f"{flash_src}:589 ({flash_via})",
+        "launches": kfit_launches["flash_forward"],
+        "launches_by_path": by_path("flash_forward"),
+        "max_abs_err": attn["out_max_abs_err"],
+        "ms": attn["fwd_ms"], "plain_ms": attn["fwd_plain_ms"],
+        "bound_ms": attn["bounds"]["forward"]["bound_ms"],
+        "bound_by": attn["bounds"]["forward"]["bound_by"],
+        "library_ms": attn["sdpa_fwd_ms"], "live_rows": attn["live"],
+        "default_route_fwd_bwd_ms": attn["default_route_fwd_bwd_ms"],
+        "sdpa_fwd_bwd_ms": attn["sdpa_fwd_bwd_ms"],
+    }, {
+        "name": "flash_backward_dkv", "route": "cuda",
+        "source": "guassianhand_tpu_torch/csrc/flash_attention.cu",
+        "replaces": f"{flash_src}:941 ({flash_via})",
+        "launches": kfit_launches["flash_backward_dkv"],
+        "launches_by_path": by_path("flash_backward_dkv"),
+        "max_abs_err": max(attn["dk_max_abs_err"], attn["dv_max_abs_err"]),
+        "ms": attn["dkv_ms"], "plain_ms": attn["bwd_plain_ms"],
+        "bound_ms": attn["bounds"]["dkv"]["bound_ms"],
+        "bound_by": attn["bounds"]["dkv"]["bound_by"], "library_ms": None,
+        "live_rows": attn["live"],
+    }, {
+        "name": "flash_backward_dq", "route": "cuda",
+        "source": "guassianhand_tpu_torch/csrc/flash_attention.cu",
+        "replaces": f"{flash_src}:1287 ({flash_via})",
+        "launches": kfit_launches["flash_backward_dq"],
+        "launches_by_path": by_path("flash_backward_dq"),
+        "max_abs_err": attn["dq_max_abs_err"],
+        "ms": attn["dq_ms"], "plain_ms": attn["bwd_plain_ms"],
+        "bound_ms": attn["bounds"]["dq"]["bound_ms"],
+        "bound_by": attn["bounds"]["dq"]["bound_by"], "library_ms": None,
+        "live_rows": attn["live"],
     }]
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel timing failed")

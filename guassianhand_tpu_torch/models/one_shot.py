@@ -63,6 +63,10 @@ class OneShotConfig:
     identity_book_size: int = 27
     residual_map_hw: tuple = (1024, 2048)
     additional_feature_dim: int = 51
+    # static budget of the interaction attention (SelfAttn.cap): the first
+    # max(128, cap) interacting points attend, the rest pass through and are
+    # counted as interaction_overflow; None attends over all of them
+    interaction_cap: Optional[int] = None
     # store color_b as the rgb triple the renderer reads (3, Hm, Wm)
     # instead of the reference's 48 channels; renders are the same
     narrow_color_b: bool = False
@@ -115,7 +119,8 @@ class OneShotAvatarModel(nn.Module):
         self.additional_features_fc = AdditionalFeaturesFC(
             uv_dim + xyz_dim + 1 + c.identity_channels + c.pose_embed_dim,
             c.additional_feature_dim)
-        self.renderer = GSRenderer(c.renderer)
+        self.renderer = GSRenderer(c.renderer,
+                                   interaction_cap=c.interaction_cap)
 
         mh, mw = c.residual_map_hw
         zeros = torch.zeros
@@ -227,11 +232,14 @@ class OneShotAvatarModel(nn.Module):
             [uv_n, uv_pe, points, xyz_pe, inter, id_vert, pose_b], dim=-1))
         hidden = torch.cat([grid_sample_batched(codes, uv_n), additional],
                            dim=-1)                              # (B, N, 131)
-        hidden = self.renderer.self_attn_layer(hidden,
-                                               mask=batch["inter_mask"])
+        hidden, inter_overflow = self.renderer.self_attn_layer(
+            hidden, mask=batch["inter_mask"], return_overflow=True)
         return {"hidden": hidden, "codes": codes, "additional": additional,
                 "camera_feats": camera_feats, "pose_feats": pose_feats,
-                "id_vert": id_vert, "uv_n": uv_n, "points": points}
+                "id_vert": id_vert, "uv_n": uv_n, "points": points,
+                # interacting points left out by interaction_cap (0 unless
+                # the cap is below the interacting count)
+                "interaction_overflow": inter_overflow}
 
     def forward(self, batch: Dict[str, Any], height: int,
                 width: int) -> Dict[str, Any]:
@@ -241,10 +249,12 @@ class OneShotAvatarModel(nn.Module):
         K_render (B, V, 3/4, 3/4), background (B, 3) optional.
 
         Returns comp_rgb (B, V, H, W, 3), comp_mask (B, V, H, W), hidden,
-        n_pairs (B,), overflow (B,), 3dgs (per-sample list) and points."""
+        n_pairs (B,), overflow (B,), 3dgs (per-sample list), points and
+        interaction_overflow."""
         points = batch["points"]
         b = points.shape[0]
-        hidden = self.features(batch)["hidden"]
+        feats = self.features(batch)
+        hidden = feats["hidden"]
         query = batch.get("points_tar", points)
         background = batch.get("background")
         outs = [self.renderer(
@@ -259,7 +269,8 @@ class OneShotAvatarModel(nn.Module):
                 "n_pairs": [o["n_pairs"] for o in outs],
                 "overflow": [o["overflow"] for o in outs],
                 "3dgs": [o["3dgs"] for o in outs],
-                "points": points}
+                "points": points,
+                "interaction_overflow": feats["interaction_overflow"]}
 
 
 def build_model(cfg: OneShotConfig = OneShotConfig(), *, seed: int = 0,

@@ -9,7 +9,9 @@
 - ``VertValid`` / ``VertPosRefinement``: ``ff`` (MLPBlock) and ``fc``.
 - ``AdditionalFeaturesFC``: ``ff1`` (MLPBlock).
 - ``SelfAttn``: exact masked attention over the interacting points, 4
-  heads of f // 4; rows outside the mask pass through unchanged.
+  heads of f // 4; rows outside the mask pass through unchanged. With
+  ``cap`` only the first max(128, cap) interacting rows attend (among
+  themselves) and the rest pass through too; their count is the overflow.
 """
 from __future__ import annotations
 
@@ -117,13 +119,17 @@ class AdditionalFeaturesFC(nn.Module):
 
 
 class SelfAttn(nn.Module):
-    """Interaction self-attention (eval mode: no dropout)."""
+    """Interaction self-attention (eval mode: no dropout). ``cap``: the
+    static budget of interacting rows (``OneShotConfig.interaction_cap``),
+    None for all of them."""
 
-    def __init__(self, dim: int = 131, n_heads: int = 4):
+    def __init__(self, dim: int = 131, n_heads: int = 4,
+                 cap: Optional[int] = None):
         super().__init__()
         d = dim // n_heads
         self.n_heads = n_heads
         self.d = d
+        self.cap = cap
         self.layer_norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.w_qs = nn.Linear(dim, n_heads * d)
         self.w_ks = nn.Linear(dim, n_heads * d)
@@ -131,20 +137,44 @@ class SelfAttn(nn.Module):
         self.fc = nn.Linear(n_heads * d, dim)
         self.ff = MLPResBlock(dim, dim)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, N, F); mask optional (B, N) bool (True = interacting)."""
+    def _capped(self, q, k, v, mask):
+        """The first max(128, cap) interacting rows of each sample, in their
+        order, attend among themselves; returns (o, the kept mask,
+        overflow: the interacting rows past the budget)."""
+        b, n = mask.shape
+        c = max(128, self.cap)
+        # interacting rows first, order kept (a stable sort)
+        idx = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)[:, :c]
+        rows = torch.arange(b, device=mask.device)[:, None]
+        ms = mask[rows, idx]
+        os_ = torch.stack([blockwise_attention(q[i, idx[i]], k[i, idx[i]],
+                                               v[i, idx[i]], ms[i])
+                           for i in range(b)])
+        o = torch.zeros_like(q).index_put((rows, idx), os_)
+        kept = torch.zeros_like(mask).index_put((rows, idx), ms)
+        overflow = (mask.sum() - kept.sum()).to(torch.float32)
+        return o, kept, overflow
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                return_overflow: bool = False):
+        """x (B, N, F); mask optional (B, N) bool (True = interacting).
+        With ``return_overflow`` also the count of interacting rows that
+        the cap left out (0 without a cap)."""
         b, n, f = x.shape
         h = self.layer_norm(x)
         shape = (b, n, self.n_heads, self.d)
         q = self.w_qs(h).reshape(shape)
         k = self.w_ks(h).reshape(shape)
         v = self.w_vs(h).reshape(shape)
-        o = torch.stack([
-            blockwise_attention(q[i], k[i], v[i],
-                                None if mask is None else mask[i])
-            for i in range(b)])
+        overflow = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.cap is not None and mask is not None and self.cap < n:
+            o, mask, overflow = self._capped(q, k, v, mask)
+        else:
+            o = torch.stack([
+                blockwise_attention(q[i], k[i], v[i],
+                                    None if mask is None else mask[i])
+                for i in range(b)])
         y = self.ff(x + self.fc(o.reshape(b, n, self.n_heads * self.d)))
-        if mask is None:
-            return y
-        return torch.where(mask[..., None], y, x)
+        if mask is not None:
+            y = torch.where(mask[..., None], y, x)
+        return (y, overflow) if return_overflow else y

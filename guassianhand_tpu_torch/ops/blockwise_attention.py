@@ -1,26 +1,43 @@
 """Exact masked attention over the interacting Gaussians (counterpart of
 ``ops/blockwise_attention.py::blockwise_attention``).
 
-Plain matmul + softmax, chunked over query blocks so that memory stays at
-O(q_chunk * N) per head: the dense 15.4k x 15.4k score matrix of the
-avatar scene would take about 3.8 GB for 4 heads. Masked positions neither
-attend nor are attended to, and their output rows are 0.
+The default route is plain matmul + softmax, chunked over query blocks so
+that memory stays at O(q_chunk * N) per head: the dense 15.4k x 15.4k
+score matrix of the avatar scene would take about 3.8 GB for 4 heads. With
+``flash`` (or ``$GH_FLASH_ATTN=1``) it is the masked flash attention of
+``ops/flash_attention_cuda.py``, CUDA kernels on the card. Either way
+masked positions neither attend nor are attended to, and their output rows
+are 0.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
+
+from guassianhand_tpu_torch.ops.flash_attention_cuda import flash_attention
 
 NEG_INF = -1e30
 Q_CHUNK = 1024
 
 
+def use_flash() -> bool:
+    """$GH_FLASH_ATTN, read at call time: "1" routes the attention through
+    the flash kernels (off by default, as in the JAX package)."""
+    return os.environ.get("GH_FLASH_ATTN", "0") == "1"
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
-                        q_chunk: int = Q_CHUNK) -> torch.Tensor:
-    """q, k, v (N, H, D); mask optional (N,) bool. Returns (N, H, D)."""
+                        q_chunk: int = Q_CHUNK,
+                        flash: Optional[bool] = None) -> torch.Tensor:
+    """q, k, v (N, H, D); mask optional (N,) bool. Returns (N, H, D).
+    ``flash`` True/False forces the flash kernels / the chunked route; None
+    follows ``$GH_FLASH_ATTN``."""
+    if use_flash() if flash is None else flash:
+        return flash_attention(q, k, v, mask)
     n, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     kt = k.permute(1, 2, 0)                                # (H, D, N)

@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p   # a pointer or the stream
 I = ctypes.c_int
+F = ctypes.c_float
 
 
 def nvcc() -> str:

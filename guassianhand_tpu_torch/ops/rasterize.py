@@ -1,7 +1,9 @@
 """Differentiable 3DGS rasterization (counterpart of ``ops/rasterize.py``).
 
-  project (PyTorch)  ->  bin (exact pair enumeration + stable sort)  ->
-  composite (CUDA kernels on the card, ``ops/rasterize_cuda.py``)
+  project (PyTorch, or the fused CUDA kernels of ``ops/projection_cuda.py``
+  with ``projection_impl="pallas"``)  ->  bin (exact pair enumeration +
+  stable sort)  ->  composite (CUDA kernels on the card,
+  ``ops/rasterize_cuda.py``)
 
 The composite is a ``torch.autograd.Function`` over the packed per-Gaussian
 attributes: its forward runs the forward kernel in training mode, its
@@ -29,10 +31,14 @@ from guassianhand_tpu_torch.core.gaussians import Gaussians
 from guassianhand_tpu_torch.ops.binning import bin_gaussians
 from guassianhand_tpu_torch.ops.common import TILE
 from guassianhand_tpu_torch.ops.projection import project_gaussians
+from guassianhand_tpu_torch.ops.projection_cuda import project_gaussians_pallas
 from guassianhand_tpu_torch.ops.rasterize_cuda import (composite_backward,
                                                        composite_forward,
                                                        pack_attrs)
 from guassianhand_tpu_torch.ops.segreduce_cuda import segment_reduce_sorted
+
+
+PROJECTIONS = {"xla": project_gaussians, "pallas": project_gaussians_pallas}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,13 +46,24 @@ class RasterizeConfig:
     scale_modifier: float = 1.0
     znear: float = 0.01
     zfar: float = 1000.0
+    # "xla" (default): the plain PyTorch projection of ops/projection.py,
+    # differentiated by autograd; "pallas": the fused projection kernels and
+    # their hand-derived adjoint (ops/projection_cuda.py). The values are
+    # the JAX package's, so that its config dicts load unchanged.
+    projection_impl: str = "xla"
+
+    def __post_init__(self):
+        if self.projection_impl not in PROJECTIONS:
+            raise ValueError(f"projection_impl must be one of "
+                             f"{sorted(PROJECTIONS)}, got "
+                             f"{self.projection_impl!r}")
 
 
 def _project(gaussians: Gaussians, camera: Camera, config: RasterizeConfig):
-    return project_gaussians(gaussians.xyz, gaussians.scaling,
-                             gaussians.rotation, camera,
-                             scale_modifier=config.scale_modifier,
-                             znear=config.znear, zfar=config.zfar)
+    return PROJECTIONS[config.projection_impl](
+        gaussians.xyz, gaussians.scaling, gaussians.rotation, camera,
+        scale_modifier=config.scale_modifier, znear=config.znear,
+        zfar=config.zfar)
 
 
 def _colors(gaussians: Gaussians, camera: Camera, sh_degree: int,

@@ -45,7 +45,8 @@ class RendererConfig:
 
 
 class GSRenderer(nn.Module):
-    def __init__(self, cfg: RendererConfig = RendererConfig()):
+    def __init__(self, cfg: RendererConfig = RendererConfig(),
+                 interaction_cap: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.mlp_net = MLP(cfg.feature_dim, cfg.hidden_dim, cfg.hidden_dim,
@@ -54,7 +55,7 @@ class GSRenderer(nn.Module):
                               use_rgb=cfg.use_rgb)
         self.gs_valid = VertValid(cfg.feature_dim + 3)
         self.vert_pos_refinement = VertPosRefinement(cfg.feature_dim + 3)
-        self.self_attn_layer = SelfAttn(cfg.feature_dim)
+        self.self_attn_layer = SelfAttn(cfg.feature_dim, cap=interaction_cap)
 
     def build_gaussians(self, features: torch.Tensor, points: torch.Tensor,
                         vert_uv: torch.Tensor):

@@ -99,8 +99,9 @@ def make_fit_step(model: OneShotAvatarModel, vgg_loss_fn: Optional[Callable],
     ``cfg.accumulate_grad_batches`` calls, one Adam update and one schedule
     step. The batch holds target_rgb (B, H, W, 3) and target_mask (B, H, W)
     for the input view (V = 1 while fitting). ``err`` has the JAX step's
-    keys: e_pix_l1, mask_loss, e_vgg (with a VGG loss), reg and overflow
-    (always 0: the port bins every pair)."""
+    keys: e_pix_l1, mask_loss, e_vgg (with a VGG loss), reg, overflow
+    (always 0: the port bins every pair) and interaction_overflow (the
+    interacting points ``interaction_cap`` left out)."""
     k = cfg.accumulate_grad_batches
     calls = [0]
 
@@ -113,6 +114,7 @@ def make_fit_step(model: OneShotAvatarModel, vgg_loss_fn: Optional[Callable],
             {"color_b": model.color_b, "opacity_b": model.opacity_b,
              "map_bias": model.map_bias}, cfg.weights)
         err["overflow"] = torch.tensor(float(sum(out["overflow"])))
+        err["interaction_overflow"] = out["interaction_overflow"]
         return total + err["reg"], err
 
     def step(batch):
