@@ -3,8 +3,9 @@
 Each source under ``csrc/`` has a plain C interface and becomes its own
 shared library, compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``_build/`` (listed in ``.gitignore``). A library's file name carries a hash
-of its source and the flags, so a stale build is never loaded. ``build_all``
-starts one ``nvcc`` per source at once and waits for all of them. Every
+of its source, the shared headers (``csrc/*.cuh``) and the flags, so a
+stale build is never loaded. ``build_all`` starts one ``nvcc`` per source
+at once and waits for all of them. Every
 pointer crosses as ``c_void_p``; a launch function returns
 ``cudaGetLastError()`` and the wrapper raises when it is not 0.
 """
@@ -50,8 +51,10 @@ class CudaLibrary:
         return self.source.stem
 
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()
+        # the shared headers too: a source may include any of them
+        text = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
                                 ).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}_{digest}.so"
 

@@ -82,27 +82,27 @@ class Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, attrs, tile_range, pair_gid, height, width):
-        rgb, final_t, n_contrib = composite_forward(
+        rgb, final_t, n_contrib, checkpoints, slot_base = composite_forward(
             tile_range, pair_gid, attrs, height=height, width=width,
             store_contrib=True)
         # the pairs in Gaussian order, for the backward's reduction
         order = torch.argsort(pair_gid, stable=True)
-        ctx.save_for_backward(attrs, tile_range, pair_gid, final_t,
-                              n_contrib, order)
+        ctx.save_for_backward(attrs, tile_range, pair_gid, rgb, final_t,
+                              n_contrib, checkpoints, slot_base, order)
         ctx.size = (height, width)
         return rgb, final_t
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_rgb, grad_t):
-        attrs, tile_range, pair_gid, final_t, n_contrib, order = \
-            ctx.saved_tensors
+        (attrs, tile_range, pair_gid, rgb, final_t, n_contrib, checkpoints,
+         slot_base, order) = ctx.saved_tensors
         height, width = ctx.size
         # an output with no gradient arrives as zeros (materialize_grads)
         pair_grads = composite_backward(
             tile_range, pair_gid, attrs, grad_rgb.contiguous(),
-            grad_t.contiguous(), final_t, n_contrib, height=height,
-            width=width)
+            grad_t.contiguous(), rgb, final_t, n_contrib, checkpoints,
+            slot_base, height=height, width=width)
         grad_attrs = segment_reduce_sorted(
             pair_gid[order], pair_grads[:, order].contiguous(),
             attrs.shape[0])

@@ -182,13 +182,14 @@ def test_composite_twin_counts_the_kernels_operations():
                      *rng.uniform(0, 1, (3, n))], 1).astype(np.float32)
     tile_range = torch.tensor([0, n], dtype=torch.int32)
     pair_gid = torch.arange(n, dtype=torch.int32)
-    _, final_t, contrib, ops = rasterize_cuda.composite_plain(
-        tile_range, pair_gid, to_torch(rows), height=16, width=16,
-        store_contrib=True, count_ops=True)
+    rgb, final_t, contrib, checkpoints, slot_base, ops = \
+        rasterize_cuda.composite_plain(tile_range, pair_gid, to_torch(rows),
+                                       height=16, width=16,
+                                       store_contrib=True, count_ops=True)
     _, bwd_ops = rasterize_cuda.composite_backward_plain(
         tile_range, pair_gid, to_torch(rows), torch.ones((16, 16, 3)),
-        torch.ones((16, 16)), final_t, contrib, height=16, width=16,
-        count_ops=True)
+        torch.ones((16, 16)), rgb, final_t, contrib, checkpoints, slot_base,
+        height=16, width=16, count_ops=True)
     stopped = 0
     for py in range(16):
         for px in range(16):
@@ -255,9 +256,11 @@ def test_composite_backward_rejects_bad_inputs():
     gid = torch.zeros(0, dtype=torch.int32)
     attrs = torch.zeros((3, 9))
     img = (torch.zeros((32, 32, 3)), torch.zeros((32, 32)),
-           torch.ones((32, 32)), torch.zeros((32, 32), dtype=torch.int32))
+           torch.zeros((32, 32, 3)), torch.ones((32, 32)),
+           torch.zeros((32, 32), dtype=torch.int32), torch.zeros((0, 256, 4)),
+           torch.zeros(5, dtype=torch.int32))
     with pytest.raises(ValueError, match="n_contrib"):
-        composite_backward(tr, gid, attrs, *img[:3], img[3].long(),
+        composite_backward(tr, gid, attrs, *img[:4], img[4].long(), *img[5:],
                            height=32, width=32)
     with pytest.raises(ValueError, match="grad_rgb"):
         composite_backward(tr, gid, attrs, img[0][:, :16], *img[1:],
