@@ -34,10 +34,14 @@ Phases, each reported on its own line:
      2e-4 * scale + rtol 2e-3 and exactly 0 on rows that are not visible;
   6. attention vs plain: the flash attention's forward, dkv and dq kernels
      against their twins at edge cases (L = 1, L = N, no mask, N no block
-     divides) and at the kernel fit's own q, k, v and mask: out within atol
-     2e-5 + rtol 1e-4 * |ref|, masked rows exactly 0, dq, dk, dv within
-     1e-4 * scale; beside them the default chunked route and torch's
-     scaled_dot_product_attention;
+     divides; 15, 16, 17, 63, 64, 65 and 129 live rows of 150, on the edges
+     of a warp's 16 rows and a CTA's 64; q and k scaled so that |score|
+     reaches about 30) and at the kernel fit's own q, k, v and mask: out
+     within atol 2e-5 + rtol 1e-4 * |ref|, masked rows exactly 0, dq, dk,
+     dv within 1e-4 * scale, a second call of each kernel equal to the first
+     to the bit; beside them the default chunked route and torch's
+     scaled_dot_product_attention, and each kernel's bound on the tensor
+     cores in split TF32 beside its bound as fp32 FMAs;
   7. raster fwd+bwd: bench.py::main's step (project, bin, composite forward
      and backward at the bench scene), ms per step and rays/s, and the
      composite wrappers' host time a call;
@@ -57,7 +61,8 @@ Kernel launch counts are zeroed just before each slice and read just after;
 kernels and twins are timed with CUDA events. With --parent DIR the port
 package of the checkout DIR is imported beside this tree's, builds its own
 kernels, and its composite kernels and raster step are timed beside this
-tree's on the same inputs, in turns.
+tree's on the same inputs, in turns, and so are its three flash attention
+kernels at the fit's q, k, v.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Any failure raises: exit code != 0
@@ -81,8 +86,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, TF32
+# on the tensor cores (dense), HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 ATOL, RTOL = 2e-5, 1e-4
 # gradient tolerance: atol GRAD_ATOL * (max |twin gradient| of the array)
@@ -403,9 +410,10 @@ class Parent:
     """The port package of another checkout (``--parent DIR``), imported
     beside this tree's under module objects of its own (its launch counters
     are its own too), built from its own sources into its own ``_build/``,
-    and driven through its entry points only: the composite wrappers and
-    ``rasterize``. Its ``composite_backward`` takes what its training-mode
-    forward returned, bound to its parameters by name."""
+    and driven through its entry points only: the composite wrappers,
+    ``rasterize`` and the flash attention's three wrappers (``fa``). Its
+    ``composite_backward`` takes what its training-mode forward returned,
+    bound to its parameters by name."""
 
     PKG = "guassianhand_tpu_torch"
 
@@ -418,14 +426,15 @@ class Parent:
         try:
             mods = {sub: importlib.import_module(f"{self.PKG}.{sub}")
                     for sub in ("ops.rasterize_cuda", "ops.rasterize",
-                                "ops.cuda_build", "core.camera",
-                                "core.gaussians")}
+                                "ops.cuda_build", "ops.flash_attention_cuda",
+                                "core.camera", "core.gaussians")}
         finally:
             sys.path.remove(str(root))
             for k in loaded():
                 del sys.modules[k]
             sys.modules.update(ours)
         self.rc = mods["ops.rasterize_cuda"]
+        self.fa = mods["ops.flash_attention_cuda"]
         self.rasterize = mods["ops.rasterize"].rasterize
         self.Camera = mods["core.camera"].Camera
         self.Gaussians = mods["core.gaussians"].Gaussians
@@ -433,7 +442,7 @@ class Parent:
             raise RuntimeError(f"--parent {root} has no {self.PKG}")
         t0 = time.perf_counter()
         mods["ops.cuda_build"].build_all([self.rc.FORWARD_LIB,
-                                          self.rc.BACKWARD_LIB])
+                                          self.rc.BACKWARD_LIB, self.fa.LIB])
         log("build", source=str(root / self.PKG / "csrc"), parent=True,
             seconds_all=time.perf_counter() - t0)
 
@@ -877,27 +886,50 @@ def phase_projection_scenes() -> None:
 
 
 def attention_bounds(n_live: int, heads: int, d: int) -> dict:
-    """Bytes and fp32 operations of the three kernels over L live rows:
-    per score, forward 4 D + 4 (two D-long products, the scale, the max,
-    exp and the sum), dkv 8 D + 5, dq 6 D + 5."""
+    """The least time of each of the three kernels over L live rows, two
+    ways kept apart. Per score the products are 4 D flops forward, 8 D dkv
+    and 6 D dq, and the other operations (the scale, the max, exp, the sums
+    and the split of P and dS) 4, 5 and 5. The kernels run the products on
+    the tensor cores as three TF32 products each (split TF32), so their
+    bound is the largest of products over PEAK_TF32_FLOPS / 3, the other
+    operations over PEAK_FP32_FLOPS and the bytes over the memory rate;
+    ``fp32`` is the bound of the same work with every operation an fp32 FMA
+    on the CUDA cores (the bound of the design before the tensor cores)."""
     rows, scores = n_live * heads, n_live * n_live * heads
-    return {"forward": bound(4 * (4 * rows * d + rows), (4 * d + 4) * scores),
-            "dkv": bound(4 * (6 * rows * d + 2 * rows), (8 * d + 5) * scores),
-            "dq": bound(4 * (5 * rows * d + 2 * rows), (6 * d + 5) * scores)}
+    out = {}
+    for name, n_bytes, product, other in (
+            ("forward", 4 * (4 * rows * d + rows), 4 * d, 4),
+            ("dkv", 4 * (6 * rows * d + 2 * rows), 8 * d, 5),
+            ("dq", 4 * (5 * rows * d + 2 * rows), 6 * d, 5)):
+        times = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+                 "tensor_cores": product * scores
+                 / (PEAK_TF32_FLOPS / 3) * 1e3,
+                 "fp32_cores": other * scores / PEAK_FP32_FLOPS * 1e3}
+        by = max(times, key=times.get)
+        out[name] = {"bound_ms": times[by],
+                     "bound_by": "bytes" if by == "bytes" else "operations",
+                     "ms_by_part": times, "bytes": n_bytes,
+                     "split_tf32_flops": product * scores,
+                     "fp32_ops": other * scores,
+                     "fp32": bound(n_bytes, (product + other) * scores)}
+    return out
 
 
 def check_attention(label: str, q, k, v, mask, reps: int = 5,
-                    timed: bool = True) -> dict:
+                    timed: bool = True, parent=None) -> dict:
     """K5's forward, dkv and dq kernels against their twins on the card,
     over the live rows of ``mask`` (N,) (all rows if None); raises on
     disagreement. out within ATOL + RTOL * |ref|, dq/dk/dv within
     ATTN_GRAD_ATOL * scale (scale the largest |gradient| of the three
-    arrays: with one live row dq is 0 up to rounding), and through
+    arrays: with one live row dq is 0 up to rounding), a second call of
+    each kernel equal to the first to the bit, and through
     ``flash_attention`` masked rows exactly 0 in the output and in every
     gradient. The kernel's and the twin's outputs are also held against a
-    float64 evaluation, to show which rounds further. Beside them the
+    float64 evaluation (the gradients too, each from its own forward), to
+    show which rounds further. Beside them the
     default chunked route and torch's scaled_dot_product_attention with the
-    same key mask, each forward + backward."""
+    same key mask, each forward + backward, and with a Parent ``parent``
+    its three kernels on the same inputs, timed in turns with these."""
     import torch.nn.functional as F
 
     from guassianhand_tpu_torch.ops import flash_attention_cuda as fa
@@ -919,18 +951,30 @@ def check_attention(label: str, q, k, v, mask, reps: int = 5,
     dk, dv = fa.flash_backward_dkv(ql, kl, vl, dol, lse, delta)
     dq = fa.flash_backward_dq(ql, kl, vl, dol, lse, delta)
     grads_p = fa.flash_attention_backward_plain(ql, kl, vl, out_p, lse_p, dol)
+    again = (*fa.flash_forward(ql, kl, vl),
+             *fa.flash_backward_dkv(ql, kl, vl, dol, lse, delta),
+             fa.flash_backward_dq(ql, kl, vl, dol, lse, delta))
     # the whole masked route, as the model calls it
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     full = fa.flash_attention(*leaves, mask)
     full_grads = torch.autograd.grad(full, leaves, dout)
     torch.cuda.synchronize()
-    out_64 = fa.flash_attention_plain(*(t.double() for t in (ql, kl, vl)))[0]
+    out_64, lse_64 = fa.flash_attention_plain(*(t.double()
+                                                for t in (ql, kl, vl)))
+    grads_64 = fa.flash_attention_backward_plain(
+        *(t.double() for t in (ql, kl, vl)), out_64, lse_64, dol.double())
     row = {"scene": label, "n": n, "heads": h, "head_dim": d, "live": L,
            "out_abs_max": float(out_p.abs().max()) if L else 0.0,
            "out_max_abs_err": float((out - out_p).abs().max()) if L else 0.0,
            "out_vs_fp64_max_abs_err": {
                "kernel": float((out - out_64).abs().max()) if L else 0.0,
                "twin": float((out_p - out_64).abs().max()) if L else 0.0},
+           "grad_vs_fp64_max_abs_err": {
+               who: {name: float((g - g64).abs().max()) if L else 0.0
+                     for name, g, g64 in zip(("dq", "dk", "dv"), grads,
+                                             grads_64)}
+               for who, grads in (("kernel", (dq, dk, dv)),
+                                  ("twin", grads_p))},
            "lse_max_abs_err": float((lse - lse_p).abs().max()) if L else 0.0,
            "out_over_atol_alone": int(((out - out_p).abs() > ATOL).sum())}
     over = {"out": int(((out - out_p).abs() > ATOL + RTOL * out_p.abs())
@@ -947,6 +991,8 @@ def check_attention(label: str, q, k, v, mask, reps: int = 5,
     over["masked_rows_nonzero"] = int(
         sum((t[masked] != 0).sum() for t in (full, *full_grads)))
     over["route_vs_kernel"] = int((full[live] != out).sum())
+    over["second_call_differs"] = int(sum(
+        (a != b).sum() for a, b in zip((out, lse, dk, dv, dq), again)))
     row["over_tol"] = over
     row["check_launches"] = [fa.flash_forward.launches - before[0],
                              fa.flash_backward_dkv.launches - before[1],
@@ -972,11 +1018,16 @@ def check_attention(label: str, q, k, v, mask, reps: int = 5,
         sdpa_out = sdpa_forward()[0].transpose(0, 1)[live]
         row["sdpa_vs_kernel_max_abs_err"] = float(
             (sdpa_out.detach() - out).abs().max())
-        row["fwd_ms"] = time_cuda(lambda: fa.flash_forward(ql, kl, vl), reps)
-        row["dkv_ms"] = time_cuda(lambda: fa.flash_backward_dkv(
-            ql, kl, vl, dol, lse, delta), reps)
-        row["dq_ms"] = time_cuda(lambda: fa.flash_backward_dq(
-            ql, kl, vl, dol, lse, delta), reps)
+        args = (ql, kl, vl, dol, lse, delta)
+        for key, name in (("fwd", "flash_forward"),
+                          ("dkv", "flash_backward_dkv"),
+                          ("dq", "flash_backward_dq")):
+            n_args = 3 if key == "fwd" else 6
+            mine = getattr(fa, name)
+            theirs = parent and getattr(parent.fa, name)
+            row[f"{key}_ms"], row[f"{key}_parent_ms"] = time_against_parent(
+                lambda: mine(*args[:n_args]),
+                theirs and (lambda: theirs(*args[:n_args])), reps)
         row["fwd_plain_ms"] = time_cuda(
             lambda: fa.flash_attention_plain(ql, kl, vl), reps=1, warmup=1)
         row["bwd_plain_ms"] = time_cuda(
@@ -997,14 +1048,18 @@ def check_attention(label: str, q, k, v, mask, reps: int = 5,
 
 def phase_attention_edges() -> None:
     """K5 at shapes the main path does not reach: one live row, every row
-    live, no mask, no live row, and N and L that no block divides."""
+    live, no mask, no live row, and N and L that no block divides; live
+    counts on the edges of a warp's 16 rows and of a CTA's 64 rows and
+    tile (15, 16, 17, 63, 64, 65, 129 of 150); and scores up to about 30
+    in magnitude, where exp's range and the split's lo term matter."""
     rng = np.random.RandomState(4)
+
+    def qkv(n, heads=4, scale=1.0):
+        return [torch.as_tensor((scale * rng.normal(size=(n, heads, 32)))
+                                .astype(np.float32), device="cuda")
+                for _ in range(3)]
+
     n = 77
-
-    def qkv(heads=4):
-        return [torch.as_tensor(rng.normal(size=(n, heads, 32)).astype(
-            np.float32), device="cuda") for _ in range(3)]
-
     one = torch.zeros(n, dtype=torch.bool, device="cuda")
     one[40] = True
     cases = (("one_live_77", one),
@@ -1014,7 +1069,21 @@ def phase_attention_edges() -> None:
              ("ragged_77", torch.as_tensor(rng.uniform(size=n) < 0.6,
                                            device="cuda")))
     for label, mask in cases:
-        check_attention(label, *qkv(), mask, timed=False)
+        check_attention(label, *qkv(n), mask, timed=False)
+    n = 150
+    for live in (15, 16, 17, 63, 64, 65, 129):
+        mask = np.zeros(n, bool)
+        mask[rng.choice(n, live, replace=False)] = True
+        check_attention(f"live_{live}_of_{n}", *qkv(n),
+                        torch.as_tensor(mask, device="cuda"), timed=False)
+    q, k, _ = qkv(n, scale=2.6)
+    v = qkv(n)[0]
+    top = float((torch.einsum("ihd,jhd->hij", q, k) / math.sqrt(32))
+                .abs().max())
+    if top < 25:
+        raise AssertionError(f"the large-score case reaches |score| {top}")
+    log("attention_large_scores", max_abs_score=top)
+    check_attention(f"large_scores_{n}", q, k, v, None, timed=False)
 
 
 def phase_raster_fwd_bwd(parent=None) -> dict:
@@ -1589,8 +1658,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--parent", type=Path, default=None,
-        help="a checkout whose port package's composite kernels and raster "
-             "step are timed beside this tree's, in turns")
+        help="a checkout whose port package's composite and flash attention "
+             "kernels and raster step are timed beside this tree's, in turns")
     args = parser.parse_args(argv)
     info = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1621,7 +1690,7 @@ def main(argv=None) -> int:
                             gs.scaling.contiguous(), gs.rotation.contiguous(),
                             kernel_fit["camera"])
     attn = check_attention("fit_256", *kernel_fit["attention"][:3],
-                           kernel_fit["attention"][3])
+                           kernel_fit["attention"][3], parent=parent)
     kfit_launches = kernel_fit["launches"]
     del default_fit, kernel_fit, gs
     for kernels in (False, True):
@@ -1740,6 +1809,8 @@ def main(argv=None) -> int:
         "bound_ms": attn["bounds"]["forward"]["bound_ms"],
         "bound_by": attn["bounds"]["forward"]["bound_by"],
         "library_ms": attn["sdpa_fwd_ms"], "live_rows": attn["live"],
+        "parent_ms": attn["fwd_parent_ms"],
+        "bound_ms_fp32_cores": attn["bounds"]["forward"]["fp32"]["bound_ms"],
         "default_route_fwd_bwd_ms": attn["default_route_fwd_bwd_ms"],
         "sdpa_fwd_bwd_ms": attn["sdpa_fwd_bwd_ms"],
     }, {
@@ -1752,7 +1823,8 @@ def main(argv=None) -> int:
         "ms": attn["dkv_ms"], "plain_ms": attn["bwd_plain_ms"],
         "bound_ms": attn["bounds"]["dkv"]["bound_ms"],
         "bound_by": attn["bounds"]["dkv"]["bound_by"], "library_ms": None,
-        "live_rows": attn["live"],
+        "live_rows": attn["live"], "parent_ms": attn["dkv_parent_ms"],
+        "bound_ms_fp32_cores": attn["bounds"]["dkv"]["fp32"]["bound_ms"],
     }, {
         "name": "flash_backward_dq", "route": "cuda",
         "source": "guassianhand_tpu_torch/csrc/flash_attention.cu",
@@ -1763,7 +1835,8 @@ def main(argv=None) -> int:
         "ms": attn["dq_ms"], "plain_ms": attn["bwd_plain_ms"],
         "bound_ms": attn["bounds"]["dq"]["bound_ms"],
         "bound_by": attn["bounds"]["dq"]["bound_by"], "library_ms": None,
-        "live_rows": attn["live"],
+        "live_rows": attn["live"], "parent_ms": attn["dq_parent_ms"],
+        "bound_ms_fp32_cores": attn["bounds"]["dq"]["fp32"]["bound_ms"],
     }]
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel timing failed")

@@ -9,7 +9,10 @@ to, and their outputs (and so their gradients) are 0. Here the live rows
 are gathered, attend among themselves through the ``FlashAttention``
 autograd Function, and are scattered back, so the kernels compute no score
 outside live x live. The kernel source is ``csrc/flash_attention.cu``,
-whose header note gives its design and what bounds it.
+whose header note gives its design and what bounds it: every product runs
+on the tensor cores as TF32 MMAs in the split ("3xTF32") form, with fp32
+accumulation, which the twins' fp32 tolerances admit (one TF32 product
+alone does not).
 
 - ``flash_forward``: out and the rows' log-sum-exp (kernel
   ``flash_fwd_kernel``, twin ``flash_attention_plain``);
