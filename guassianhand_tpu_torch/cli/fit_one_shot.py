@@ -9,8 +9,11 @@ Builds the scene and its target image, a model with seeded weights (or the
 from the run's latest checkpoint, logs metrics to ``metrics.jsonl``, writes
 prediction/target PNGs every 10 steps under ``vis/`` and a checkpoint at the
 end, all under ``<out_dir>/<expname>``. Runs on ``cuda`` unless
-``--device cpu``. Evaluation (``--run_val``), the InterHand2.6M data path
-and the PLY export are not ported yet.
+``--device cpu``. Evaluation (``--run_val``), the InterHand2.6M data path,
+the texture-edit fit and the PLY export are not ported yet, and are
+refused. The port computes in float32 whatever ``model.compute_dtype``
+says; the run prints one line saying so and its config snapshot records
+``compute_dtype_effective``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import sys
 
 import torch
 
-from guassianhand_tpu_torch.config import load_config, save_config_snapshot
+from guassianhand_tpu_torch.config import (compute_dtype_line, load_config,
+                                           save_config_snapshot)
 from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                    synthetic_batch)
 from guassianhand_tpu_torch.models.one_shot import build_model, no_tf32
@@ -53,6 +57,10 @@ def main(argv=None) -> int:
     if not (args.synthetic or cfg.data.dataset == "synthetic"):
         parser.error("only the synthetic scene is ported yet: pass "
                      "--synthetic (the InterHand2.6M path is not)")
+    if cfg.edit.enabled or cfg.data.edit:
+        parser.error("the texture-edit fit (edit.enabled, data.edit) is not "
+                     "ported yet")
+    print(compute_dtype_line(cfg.model))
     run_dir = os.path.join(cfg.out_dir, cfg.expname)
     save_config_snapshot(cfg, run_dir)
     hw_h = args.height or cfg.data.height

@@ -2,10 +2,15 @@
 ``cli/render_360.py``): a full-width model with seeded weights, the
 synthetic two-hand scene in one pose, orbit views, PNG frames.
 
-  python -m guassianhand_tpu_torch.cli.render_360 --views 8 --out frames/
+  python -m guassianhand_tpu_torch.cli.render_360 --views 8 --out frames/ \
+      [--config configs/one_shot.yaml] [key.sub=value ...]
 
 Each call to the model renders ``--views_per_call`` views of the pose in one
-stacked multi-view raster. Runs on ``cuda`` unless ``--device cpu``.
+stacked multi-view raster. Runs on ``cuda`` unless ``--device cpu``. The
+model is ``MODEL_CONFIG`` unless a config file or ``model.*`` overrides are
+given. The port computes in float32 whatever ``model.compute_dtype`` says;
+the run prints one line saying so, and the config snapshot it writes beside
+the frames records ``compute_dtype_effective``.
 """
 from __future__ import annotations
 
@@ -17,6 +22,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from guassianhand_tpu_torch.config import (ExperimentConfig,
+                                           compute_dtype_line, load_config,
+                                           save_config_snapshot)
 from guassianhand_tpu_torch.data.rays import orbit_cameras
 from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                    synthetic_batch)
@@ -64,13 +72,20 @@ def main(argv=None) -> int:
     parser.add_argument("--width", type=int, default=256)
     parser.add_argument("--subdivide", type=int, default=2)
     parser.add_argument("--device", default="cuda")
-    args = parser.parse_args(argv)
+    parser.add_argument("--config", default=None,
+                        help="a YAML config whose model section builds the "
+                             "model")
+    args, extras = parser.parse_known_args(argv)
+    cfg = (load_config(args.config, extras) if args.config or extras
+           else ExperimentConfig(model=MODEL_CONFIG))
+    print(compute_dtype_line(cfg.model))
+    save_config_snapshot(cfg, args.out)
 
     scene = SyntheticHandScene.build(n_vertices=778, subdivide=args.subdivide,
                                      height=args.height, width=args.width,
                                      device=args.device)
     batch = synthetic_batch(scene, seed=args.seed)
-    model = build_model(MODEL_CONFIG, seed=args.seed, device=args.device)
+    model = build_model(cfg.model, seed=args.seed, device=args.device)
     frames = []
     for first in range(0, args.views, args.views_per_call):
         n = min(args.views_per_call, args.views - first)

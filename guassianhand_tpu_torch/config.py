@@ -4,8 +4,15 @@ command-line overrides.
 
 ``yaml`` is imported only when a YAML path is given, so a run configured by
 overrides alone needs no YAML package. The run's merged config is written
-as JSON. ``DataConfig`` holds what the synthetic scene reads; the JAX
-config's InterHand2.6M, edit and LPIPS settings are not ported yet.
+as JSON. Every key of the repo's configs loads, with the JAX package's
+value; unknown keys raise. Not every key has an effect yet: the
+InterHand2.6M paths and flags of ``DataConfig`` (the synthetic scene reads
+none of them), the edit settings (``data.edit``, ``data.image_path``,
+``data.mask_path``, ``edit``; the fit CLI refuses an edit config), the TPU
+layout keys of ``RasterizeConfig`` and the XLA knobs of ``OneShotConfig``
+(documented there), and ``model.compute_dtype``: the port computes in
+float32, which the entry points print and the snapshot records as
+``compute_dtype_effective``.
 """
 from __future__ import annotations
 
@@ -16,7 +23,12 @@ import typing
 from typing import Any, Dict, List, Optional
 
 from guassianhand_tpu_torch.models.one_shot import OneShotConfig
+from guassianhand_tpu_torch.render.renderer import EditConfig
 from guassianhand_tpu_torch.train.fit import FitConfig
+
+# the type every port entry point computes in, whatever model.compute_dtype
+# asks for (the JAX package's bfloat16 pipeline is not ported)
+COMPUTE_DTYPE_EFFECTIVE = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +37,16 @@ class DataConfig:
     height: int = 256
     width: int = 256
     edge_subdivide: int = 2
+    # the InterHand2.6M data path and its flags (not ported)
+    data_root: str = "./processed_dataset"
+    annot_path: str = "./InterHand2.6M/annotations"
+    mask_sa: bool = True
+    render_mask: bool = True
+    color_jitter: bool = False
+    # the edit fit's fixed frame and custom image (not ported)
+    edit: bool = False
+    image_path: Optional[str] = None
+    mask_path: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +57,7 @@ class ExperimentConfig:
     data: DataConfig = DataConfig()
     model: OneShotConfig = OneShotConfig()
     fit: FitConfig = FitConfig()
+    edit: EditConfig = EditConfig()
     vgg_weights: Optional[str] = None
     pretrained: Optional[str] = None
     resume: bool = True
@@ -113,10 +136,23 @@ def load_config(path: Optional[str] = None,
     return _from_dict(ExperimentConfig, d)
 
 
+def compute_dtype_line(model: OneShotConfig) -> str:
+    """The one line an entry point prints about the type it computes in."""
+    asked = model.compute_dtype
+    if asked in (None, COMPUTE_DTYPE_EFFECTIVE):
+        return f"compute dtype: {COMPUTE_DTYPE_EFFECTIVE}"
+    return (f"compute dtype: {COMPUTE_DTYPE_EFFECTIVE} (model.compute_dtype "
+            f"{asked} is not ported; the port computes in "
+            f"{COMPUTE_DTYPE_EFFECTIVE})")
+
+
 def save_config_snapshot(cfg: ExperimentConfig, run_dir: str) -> str:
-    """The merged config as JSON in the run directory."""
+    """The merged config as JSON in the run directory, with the type the
+    run computes in as ``compute_dtype_effective``."""
     os.makedirs(run_dir, exist_ok=True)
     path = os.path.join(run_dir, "config_snapshot.json")
+    snap = dataclasses.asdict(cfg)
+    snap["compute_dtype_effective"] = COMPUTE_DTYPE_EFFECTIVE
     with open(path, "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=1)
+        json.dump(snap, f, indent=1)
     return path

@@ -1,33 +1,48 @@
-// Fused EWA projection of 3D Gaussians and its adjoint, for Hopper (sm_90a).
+// Fused EWA projection of 3D Gaussians and its adjoint, for Hopper (sm_90a),
+// for V views in one launch.
 //
 // Replaces: guassianhand_tpu/ops/projection_pallas.py::project_gaussians_pallas
 // (-> the _project custom_vjp -> _call; kernels _proj_fwd_kernel and
 // _proj_bwd_kernel, math _fwd_math), the rasterizer's preprocess with
-// RasterizeConfig.projection_impl = "pallas".
+// RasterizeConfig.projection_impl = "pallas", which ops/rasterize.py:527
+// batches over the views with jax.vmap (a view axis on the Pallas grid).
 //
-// What it computes, per Gaussian: world to camera (R, t), the pinhole
-// projection through the full 4x4 projection to pixel means, the EWA 2D
-// covariance J W Sigma W^T J^T with the view-space x/y clamped at
+// What it computes, per Gaussian and view: world to camera (R, t), the
+// pinhole projection through the full 4x4 projection to pixel means, the
+// EWA 2D covariance J W Sigma W^T J^T with the view-space x/y clamped at
 // 1.3 tan(fov/2) and +0.3 px dilation, its inverse (the conic), the radius
 // ceil(3 sqrt(lambda_max)) and the visibility (in front of z = 0.2, det > 0,
 // radius > 0). The forward reads 10 floats a Gaussian (xyz, scale, the raw
-// quaternion) and writes 8 values (mean2d x/y, depth, conic A/B/C, radius,
-// visible). The adjoint recomputes the forward, reads the same 10 plus the
-// 5 cotangents of mean2d and conic, and writes the 10 gradients of xyz,
-// scale and quaternion; rows that are not visible get 0 and depth gets no
-// gradient, as in the TPU kernel. The camera's 30 constants
-// (ops/projection_cuda.py::camera_consts) come in one small array that
-// every thread reads through the read-only cache.
+// quaternion) and writes 8 values a Gaussian and view (mean2d x/y, depth,
+// conic A/B/C, radius, visible). The adjoint recomputes the forward of each
+// view, reads the same 10 plus the 5 cotangents of mean2d and conic of each
+// view, and writes the 10 gradients of xyz, scale and quaternion, summed
+// over the views; a view where the row is not visible adds 0 and depth gets
+// no gradient, as in the TPU kernel. Each view's 30 camera constants
+// (ops/projection_cuda.py::camera_consts) come in one (V, 30) array.
 //
-// What bounds it on this card: bytes, and below them launch latency. About
-// 150 fp32 operations a Gaussian forward and 450 backward against 72 and
-// 100 bytes moved: at 30,808 Gaussians the bytes bound is 0.7 and 0.9 us,
-// under the cost of one launch.
+// What bounds it on this card: launch latency, then one thread's dependent
+// chain. About 150 fp32 operations a Gaussian and view forward and 450
+// backward (IEEE divisions and square roots among them) against 72 and 100
+// bytes moved: at 30,808 Gaussians the bytes bound is 0.6 and 0.9 us, under
+// the cost of one launch, and the chain of one thread (a few hundred
+// dependent instructions) is longer than the loads.
 //
-// What the design does about it: one thread a Gaussian, 256 a CTA, no
-// shared memory; the TPU kernel's 4096-wide blocks and its padding to them
-// are TPU layout and are not carried over. The arrays keep the port's
-// layout (N, 3) / (N, 4) / (N, 2), so the wrapper copies nothing.
+// What the design does about it: one launch for all views. The forward's
+// grid is (ceil(N / 128), V): a CTA holds 128 Gaussians of one view and
+// reads that view's constants once into shared memory, so the 30,808
+// Gaussians of the fit make 241 CTAs and reach all 132 SMs (256-thread
+// CTAs made 121), and a request's 4 views are one launch of 964 CTAs
+// instead of four launches. The adjoint runs one thread a Gaussian over
+// every view in order, all V views' constants in shared memory, and sums
+// the views' gradients in view order in registers: no atomics, the same
+// bits from run to run, one launch for any V; it is compiled once for one
+// view (the fit's case, straight-line code) and once for any count. The
+// quaternion rows load as one 16-byte load where the array is 16-byte
+// aligned. The TPU kernel's 4096-wide blocks and its padding to them are
+// TPU layout and are not carried over; the arrays keep the port's layout
+// (N, 3) / (N, 4) in and (V, N, 2) / (V, N) / (V, N, 3) out, so the
+// wrapper copies nothing.
 //
 // Numerics: every operation is a round-to-nearest intrinsic (__fadd_rn,
 // __fmul_rn, __fdiv_rn, __fsqrt_rn), applied in the order of the plain
@@ -35,7 +50,8 @@
 // project_adjoint_plain), which follows the JAX kernel's expressions. The
 // compiler contracts none of them into FMAs, so each value rounds as the
 // twin's eager PyTorch ops round it on the card: the discrete outputs
-// (radius, visible) come out equal. The quaternion norm uses rsqrtf, the
+// (radius, visible) come out equal, and so does the sum over views, which
+// the twin adds in the same order. The quaternion norm uses rsqrtf, the
 // function torch.rsqrt calls on the card. max/min/clamp keep PyTorch's NaN
 // propagation.
 #include <cuda_runtime.h>
@@ -44,7 +60,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kConsts = 30;
 constexpr float kNearCullZ = 0.2f;
 constexpr float kCovDilation = 0.3f;
@@ -170,51 +186,70 @@ __device__ __forceinline__ void fwd_math(const float* __restrict__ cs, float x,
   f.radius = f.visible ? radius : 0.0f;
 }
 
+// One row's xyz, scale and raw quaternion.
+struct Row {
+  float x, y, z, sx, sy, sz, qr, qx, qy, qz;
+};
+
+__device__ __forceinline__ Row load_row(const float* __restrict__ xyz,
+                                        const float* __restrict__ scale,
+                                        const float* __restrict__ rot,
+                                        bool rot_aligned, int i) {
+  Row w;
+  w.x = __ldg(xyz + 3 * i);
+  w.y = __ldg(xyz + 3 * i + 1);
+  w.z = __ldg(xyz + 3 * i + 2);
+  w.sx = __ldg(scale + 3 * i);
+  w.sy = __ldg(scale + 3 * i + 1);
+  w.sz = __ldg(scale + 3 * i + 2);
+  if (rot_aligned) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(rot) + i);
+    w.qr = q.x; w.qx = q.y; w.qy = q.z; w.qz = q.w;
+  } else {
+    w.qr = __ldg(rot + 4 * i);
+    w.qx = __ldg(rot + 4 * i + 1);
+    w.qy = __ldg(rot + 4 * i + 2);
+    w.qz = __ldg(rot + 4 * i + 3);
+  }
+  return w;
+}
+
 __global__ void __launch_bounds__(kThreads)
 project_fwd_kernel(const float* __restrict__ xyz,
                    const float* __restrict__ scale,
-                   const float* __restrict__ rot,
+                   const float* __restrict__ rot, bool rot_aligned,
                    const float* __restrict__ consts, int n,
                    float* __restrict__ mean2d, float* __restrict__ depth,
                    float* __restrict__ conic, float* __restrict__ radius,
                    bool* __restrict__ visible) {
   __shared__ float cs[kConsts];
-  if (threadIdx.x < kConsts) cs[threadIdx.x] = consts[threadIdx.x];
+  const int view = blockIdx.y;
+  if (threadIdx.x < kConsts)
+    cs[threadIdx.x] = consts[view * kConsts + threadIdx.x];
   __syncthreads();
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
+  const Row w = load_row(xyz, scale, rot, rot_aligned, i);
   Fwd f;
-  fwd_math(cs, xyz[3 * i], xyz[3 * i + 1], xyz[3 * i + 2], scale[3 * i],
-           scale[3 * i + 1], scale[3 * i + 2], rot[4 * i], rot[4 * i + 1],
-           rot[4 * i + 2], rot[4 * i + 3], f);
-  mean2d[2 * i] = f.m2x;
-  mean2d[2 * i + 1] = f.m2y;
-  depth[i] = f.tz;
-  conic[3 * i] = mul(f.c, f.inv_det);
-  conic[3 * i + 1] = mul(-f.b, f.inv_det);
-  conic[3 * i + 2] = mul(f.a, f.inv_det);
-  radius[i] = f.radius;
-  visible[i] = f.visible;
+  fwd_math(cs, w.x, w.y, w.z, w.sx, w.sy, w.sz, w.qr, w.qx, w.qy, w.qz, f);
+  const size_t o = static_cast<size_t>(view) * n + i;
+  reinterpret_cast<float2*>(mean2d)[o] = make_float2(f.m2x, f.m2y);
+  depth[o] = f.tz;
+  conic[3 * o] = mul(f.c, f.inv_det);
+  conic[3 * o + 1] = mul(-f.b, f.inv_det);
+  conic[3 * o + 2] = mul(f.a, f.inv_det);
+  radius[o] = f.radius;
+  visible[o] = f.visible;
 }
 
-__global__ void __launch_bounds__(kThreads)
-project_bwd_kernel(const float* __restrict__ xyz,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ rot,
-                   const float* __restrict__ consts,
-                   const float* __restrict__ g_mean2d,
-                   const float* __restrict__ g_conic, int n,
-                   float* __restrict__ g_xyz, float* __restrict__ g_scale,
-                   float* __restrict__ g_rot) {
-  __shared__ float cs[kConsts];
-  if (threadIdx.x < kConsts) cs[threadIdx.x] = consts[threadIdx.x];
-  __syncthreads();
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const float sx = scale[3 * i], sy = scale[3 * i + 1], sz = scale[3 * i + 2];
+// The adjoint of one view: the gradients of xyz (3), scale (3) and the raw
+// quaternion (4) from the cotangents of mean2d (gm) and conic (gcn).
+__device__ __forceinline__ void adjoint(const float* __restrict__ cs,
+                                        const Row& w, const float gm[2],
+                                        const float gcn[3], float g_xyz[3],
+                                        float g_scale[3], float g_rot[4]) {
   Fwd f;
-  fwd_math(cs, xyz[3 * i], xyz[3 * i + 1], xyz[3 * i + 2], sx, sy, sz,
-           rot[4 * i], rot[4 * i + 1], rot[4 * i + 2], rot[4 * i + 3], f);
+  fwd_math(cs, w.x, w.y, w.z, w.sx, w.sy, w.sz, w.qr, w.qx, w.qy, w.qz, f);
   const float R00 = cs[0], R01 = cs[1], R02 = cs[2];
   const float R10 = cs[3], R11 = cs[4], R12 = cs[5];
   const float R20 = cs[6], R21 = cs[7], R22 = cs[8];
@@ -225,11 +260,11 @@ project_bwd_kernel(const float* __restrict__ xyz,
   const float W = cs[28], H = cs[29];
 
   const float live = f.visible ? 1.0f : 0.0f;
-  const float ga = mul(g_conic[3 * i], live);
-  const float gb = mul(g_conic[3 * i + 1], live);
-  const float gc = mul(g_conic[3 * i + 2], live);
-  const float gmx = mul(g_mean2d[2 * i], live);
-  const float gmy = mul(g_mean2d[2 * i + 1], live);
+  const float ga = mul(gcn[0], live);
+  const float gb = mul(gcn[1], live);
+  const float gc = mul(gcn[2], live);
+  const float gmx = mul(gm[0], live);
+  const float gmy = mul(gm[1], live);
 
   // conic = (c, -b, a) / det
   const float inv_det = f.inv_det, a = f.a, b = f.b, c = f.c;
@@ -250,19 +285,19 @@ project_bwd_kernel(const float* __restrict__ xyz,
   }
 
   // u_j = s_j w0_j; v_j = s_j w1_j
-  const float s[3] = {sx, sy, sz};
+  const float s[3] = {w.sx, w.sy, w.sz};
   float gw0[3], gw1[3];
   for (int j = 0; j < 3; ++j) {
-    g_scale[3 * i + j] = add(mul(gu[j], f.w0[j]), mul(gv[j], f.w1[j]));
+    g_scale[j] = add(mul(gu[j], f.w0[j]), mul(gv[j], f.w1[j]));
     gw0[j] = mul(gu[j], s[j]);
     gw1[j] = mul(gv[j], s[j]);
   }
 
   // w0_j = sum_i m_ij c0_i; w1_j = sum_i m_ij c1_i
-  float gm[9];  // gm[3 i + j] = d/d m_ij
+  float gm9[9];  // gm9[3 i + j] = d/d m_ij
   for (int ii = 0; ii < 3; ++ii) {
     for (int j = 0; j < 3; ++j) {
-      gm[3 * ii + j] = add(mul(gw0[j], f.c0[ii]), mul(gw1[j], f.c1[ii]));
+      gm9[3 * ii + j] = add(mul(gw0[j], f.c0[ii]), mul(gw1[j], f.c1[ii]));
     }
   }
   const float* m = f.m;
@@ -276,9 +311,9 @@ project_bwd_kernel(const float* __restrict__ xyz,
 
   // the quaternion chain: m <- normalised (r, xq, yq, zq) <- raw q
   const float r = f.qn[0], xq = f.qn[1], yq = f.qn[2], zq = f.qn[3];
-  const float gm00 = gm[0], gm01 = gm[1], gm02 = gm[2];
-  const float gm10 = gm[3], gm11 = gm[4], gm12 = gm[5];
-  const float gm20 = gm[6], gm21 = gm[7], gm22 = gm[8];
+  const float gm00 = gm9[0], gm01 = gm9[1], gm02 = gm9[2];
+  const float gm10 = gm9[3], gm11 = gm9[4], gm12 = gm9[5];
+  const float gm20 = gm9[6], gm21 = gm9[7], gm22 = gm9[8];
   const float g_r = mul(2.0f, add(sub(sub(add(add(mul(-gm01, zq),
                                                   mul(gm02, yq)),
                                               mul(gm10, zq)),
@@ -310,10 +345,10 @@ project_bwd_kernel(const float* __restrict__ xyz,
   const float dot = add(add(add(mul(r, g_r), mul(xq, g_x)), mul(yq, g_y)),
                         mul(zq, g_z));
   const float qnorm = f.qnorm;
-  g_rot[4 * i] = mul(sub(g_r, mul(r, dot)), qnorm);
-  g_rot[4 * i + 1] = mul(sub(g_x, mul(xq, dot)), qnorm);
-  g_rot[4 * i + 2] = mul(sub(g_y, mul(yq, dot)), qnorm);
-  g_rot[4 * i + 3] = mul(sub(g_z, mul(zq, dot)), qnorm);
+  g_rot[0] = mul(sub(g_r, mul(r, dot)), qnorm);
+  g_rot[1] = mul(sub(g_x, mul(xq, dot)), qnorm);
+  g_rot[2] = mul(sub(g_y, mul(yq, dot)), qnorm);
+  g_rot[3] = mul(sub(g_z, mul(zq, dot)), qnorm);
 
   // c0_i = fx inv_z R0_i - fx tx inv_z2 R2_i (c1 with fy, ty, R1)
   const float inv_z = f.inv_z, inv_z2 = f.inv_z2, tx = f.tx, ty = f.ty;
@@ -349,36 +384,91 @@ project_bwd_kernel(const float* __restrict__ xyz,
   // tzs = where(in_front, tz, 1): culled rows are not visible (live 0)
   const float g_tz = f.in_front ? g_tzs : 0.0f;
 
-  g_xyz[3 * i] = add(add(add(dot3(R00, g_pcx, R10, g_pcy, R20, g_tz),
-                             mul(F00, g_hx)), mul(F10, g_hy)),
-                     mul(F30, g_hw));
-  g_xyz[3 * i + 1] = add(add(add(dot3(R01, g_pcx, R11, g_pcy, R21, g_tz),
-                                 mul(F01, g_hx)), mul(F11, g_hy)),
-                         mul(F31, g_hw));
-  g_xyz[3 * i + 2] = add(add(add(dot3(R02, g_pcx, R12, g_pcy, R22, g_tz),
-                                 mul(F02, g_hx)), mul(F12, g_hy)),
-                         mul(F32, g_hw));
+  g_xyz[0] = add(add(add(dot3(R00, g_pcx, R10, g_pcy, R20, g_tz),
+                         mul(F00, g_hx)), mul(F10, g_hy)),
+                 mul(F30, g_hw));
+  g_xyz[1] = add(add(add(dot3(R01, g_pcx, R11, g_pcy, R21, g_tz),
+                         mul(F01, g_hx)), mul(F11, g_hy)),
+                 mul(F31, g_hw));
+  g_xyz[2] = add(add(add(dot3(R02, g_pcx, R12, g_pcy, R22, g_tz),
+                         mul(F02, g_hx)), mul(F12, g_hy)),
+                 mul(F32, g_hw));
+}
+
+// kViews > 0: compiled for exactly that many views (the fit's one view runs
+// straight-line code, which a loop over a runtime count slowed); 0: any.
+template <int kViews>
+__global__ void __launch_bounds__(kThreads)
+project_bwd_kernel(const float* __restrict__ xyz,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ rot, bool rot_aligned,
+                   const float* __restrict__ consts,
+                   const float* __restrict__ g_mean2d,
+                   const float* __restrict__ g_conic, int n, int views,
+                   float* __restrict__ g_xyz, float* __restrict__ g_scale,
+                   float* __restrict__ g_rot) {
+  extern __shared__ float cs_all[];  // views x kConsts
+  for (int t = threadIdx.x; t < views * kConsts; t += kThreads)
+    cs_all[t] = consts[t];
+  __syncthreads();
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const Row w = load_row(xyz, scale, rot, rot_aligned, i);
+  float acc_xyz[3], acc_scale[3], acc_rot[4];
+  const int nv = kViews > 0 ? kViews : views;
+  for (int view = 0; view < nv; ++view) {
+    const size_t o = static_cast<size_t>(view) * n + i;
+    const float gm[2] = {g_mean2d[2 * o], g_mean2d[2 * o + 1]};
+    const float gcn[3] = {g_conic[3 * o], g_conic[3 * o + 1],
+                          g_conic[3 * o + 2]};
+    float gx[3], gs[3], gq[4];
+    adjoint(cs_all + view * kConsts, w, gm, gcn, gx, gs, gq);
+    // the views' gradients summed in view order, as the twin adds them
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      acc_xyz[j] = view == 0 ? gx[j] : add(acc_xyz[j], gx[j]);
+      acc_scale[j] = view == 0 ? gs[j] : add(acc_scale[j], gs[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc_rot[j] = view == 0 ? gq[j] : add(acc_rot[j], gq[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    g_xyz[3 * i + j] = acc_xyz[j];
+    g_scale[3 * i + j] = acc_scale[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) g_rot[4 * i + j] = acc_rot[j];
 }
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 }  // namespace
 
 // Both launch on `stream` (a cudaStream_t) and do not synchronise. Every
-// array is contiguous float32 (visible: bool); consts holds 30 floats.
-// Each returns cudaGetLastError() as an int, 0 on success.
+// array is contiguous float32 (visible: bool); consts holds V x 30 floats,
+// the forward's outputs and the adjoint's cotangents are (V, N, ...). The
+// adjoint keeps all V views' constants in the 48 KB of shared memory a CTA
+// gets without opting in, so V <= 409 (the wrapper checks). Each returns
+// cudaGetLastError() as an int, 0 on success.
 extern "C" int gh_project_forward(const void* xyz, const void* scale,
                                   const void* rot, const void* consts, int n,
-                                  void* mean2d, void* depth, void* conic,
-                                  void* radius, void* visible, void* stream) {
-  if (n > 0) {
-    project_fwd_kernel<<<blocks_for(n), kThreads, 0,
+                                  int views, void* mean2d, void* depth,
+                                  void* conic, void* radius, void* visible,
+                                  void* stream) {
+  if (n > 0 && views > 0) {
+    project_fwd_kernel<<<dim3(blocks_for(n), views), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(xyz), static_cast<const float*>(scale),
-        static_cast<const float*>(rot), static_cast<const float*>(consts), n,
-        static_cast<float*>(mean2d), static_cast<float*>(depth),
-        static_cast<float*>(conic), static_cast<float*>(radius),
-        static_cast<bool*>(visible));
+        static_cast<const float*>(rot), aligned16(rot),
+        static_cast<const float*>(consts), n, static_cast<float*>(mean2d),
+        static_cast<float*>(depth), static_cast<float*>(conic),
+        static_cast<float*>(radius), static_cast<bool*>(visible));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -386,16 +476,20 @@ extern "C" int gh_project_forward(const void* xyz, const void* scale,
 extern "C" int gh_project_backward(const void* xyz, const void* scale,
                                    const void* rot, const void* consts,
                                    const void* g_mean2d, const void* g_conic,
-                                   int n, void* g_xyz, void* g_scale,
-                                   void* g_rot, void* stream) {
-  if (n > 0) {
-    project_bwd_kernel<<<blocks_for(n), kThreads, 0,
+                                   int n, int views, void* g_xyz,
+                                   void* g_scale, void* g_rot, void* stream) {
+  if (n > 0 && views > 0) {
+    const size_t smem = static_cast<size_t>(views) * kConsts * sizeof(float);
+    auto kernel = views == 1 ? project_bwd_kernel<1> : project_bwd_kernel<0>;
+    kernel<<<blocks_for(n), kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(xyz), static_cast<const float*>(scale),
-        static_cast<const float*>(rot), static_cast<const float*>(consts),
+        static_cast<const float*>(rot), aligned16(rot),
+        static_cast<const float*>(consts),
         static_cast<const float*>(g_mean2d),
-        static_cast<const float*>(g_conic), n, static_cast<float*>(g_xyz),
-        static_cast<float*>(g_scale), static_cast<float*>(g_rot));
+        static_cast<const float*>(g_conic), n, views,
+        static_cast<float*>(g_xyz), static_cast<float*>(g_scale),
+        static_cast<float*>(g_rot));
   }
   return static_cast<int>(cudaGetLastError());
 }

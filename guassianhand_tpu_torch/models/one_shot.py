@@ -63,6 +63,10 @@ class OneShotConfig:
     identity_book_size: int = 27
     residual_map_hw: tuple = (1024, 2048)
     additional_feature_dim: int = 51
+    # stored and read nowhere, as in the JAX package: the synthetic batch's
+    # interaction mask takes k = min(100, N // 4) and threshold 10
+    interaction_k: int = 100
+    interaction_threshold: int = 10
     # static budget of the interaction attention (SelfAttn.cap): the first
     # max(128, cap) interacting points attend, the rest pass through and are
     # counted as interaction_overflow; None attends over all of them
@@ -70,6 +74,17 @@ class OneShotConfig:
     # store color_b as the rgb triple the renderer reads (3, Hm, Wm)
     # instead of the reference's 48 channels; renders are the same
     narrow_color_b: bool = False
+    # "bfloat16" asks for the JAX package's bf16 feature pipeline, which is
+    # not ported: the port computes in float32 whatever this says, and the
+    # entry points say so (config.compute_dtype_effective)
+    compute_dtype: Optional[str] = None
+    # the JAX package's softmax precision under bf16, and its XLA-only
+    # knobs (lax.scan over the blocks, rematerialised attention cores):
+    # accepted so that its configs load, with no effect in float32 eager
+    # PyTorch
+    backbone_softmax_fp32: bool = True
+    backbone_scan: bool = False
+    backbone_attn_remat: bool = False
     renderer: RendererConfig = RendererConfig()
 
 

@@ -11,13 +11,20 @@ direction, with the hand-derived adjoint as the backward of the
 ``ops/projection.py``. The kernel source is ``csrc/projection.cu``, whose
 header note gives its design and what bounds it.
 
+Every function takes one camera or a stack of V: ``consts`` is (30,) or
+(V, 30) (``camera_consts``), and the forward's outputs and the adjoint's
+cotangents then carry a leading view axis, as ``jax.vmap`` of the JAX
+function gives them. The kernels do all V views in one launch; the adjoint
+sums the views' gradients in view order.
+
 The twins (``project_plain``, ``project_adjoint_plain``) are the scalar form
 of the JAX kernels' math, op for op: ``c * inv_det`` and not ``c / det``,
 ``rsqrt`` normalisation of the quaternion, every sum in the JAX
-expression's order. ``ops/projection.py`` computes the same function in
-another order and so rounds differently. The kernels round every operation
-as these twins do, so on the card radius and ``visible`` come out equal.
-Both see the same camera constants (``camera_consts``).
+expression's order; a stack of cameras broadcasts each constant over the
+views, and the adjoint adds the views one after the other, as the kernel
+does. ``ops/projection.py`` computes the same function in another order and
+so rounds differently. The kernels round every operation as these twins
+do, so on the card radius and ``visible`` come out equal.
 
 The wrappers ``project_forward`` and ``project_backward`` send CUDA tensors
 to the kernels and CPU tensors to the twins; nothing falls back from one to
@@ -26,6 +33,8 @@ gradient (the composite only sorts by it), and radius and ``visible`` are
 not differentiable, as in the JAX package.
 """
 from __future__ import annotations
+
+from typing import Sequence, Union
 
 import torch
 
@@ -36,9 +45,11 @@ from guassianhand_tpu_torch.ops.projection import (COV_DILATION, NEAR_CULL_Z,
                                                    Projected)
 
 LIB = CudaLibrary("projection.cu", {
-    "gh_project_forward": [P, P, P, P, I, P, P, P, P, P, P],
-    "gh_project_backward": [P, P, P, P, P, P, I, P, P, P, P]})
+    "gh_project_forward": [P, P, P, P, I, I, P, P, P, P, P, P],
+    "gh_project_backward": [P, P, P, P, P, P, I, I, P, P, P, P]})
 N_CONSTS = 30
+# the adjoint keeps every view's constants in 48 KB of shared memory
+MAX_VIEWS = 48 * 1024 // (4 * N_CONSTS)
 
 
 def camera_consts(camera: Camera, znear: float = 0.01,
@@ -61,9 +72,16 @@ def camera_consts(camera: Camera, znear: float = 0.01,
     ]).to(torch.float32).contiguous()
 
 
+def _per_constant(consts: torch.Tensor) -> torch.Tensor:
+    """``consts`` indexed by constant: (30,) as it is, (V, 30) as (30, V, 1),
+    so that each constant broadcasts over the views against (N,) rows."""
+    return consts if consts.dim() == 1 else consts.T[:, :, None]
+
+
 def _fwd_math(cs, x, y, z, sx, sy, sz, qr, qx, qy, qz):
     """``projection_pallas._fwd_math`` in PyTorch, op for op, on (N,)
-    vectors; ``cs`` is the ``camera_consts`` tensor."""
+    vectors; ``cs`` is ``_per_constant`` of the ``camera_consts`` tensor,
+    and every value is (N,) for one camera or (V, N) for a stack."""
     R00, R01, R02 = cs[0], cs[1], cs[2]
     R10, R11, R12 = cs[3], cs[4], cs[5]
     R20, R21, R22 = cs[6], cs[7], cs[8]
@@ -162,12 +180,13 @@ def _columns(xyz, scaling, rotation):
 
 def project_plain(xyz, scaling, rotation, consts):
     """The forward kernel's function in plain PyTorch: (mean2d (N, 2),
-    depth (N,), conic (N, 3), radius (N,), visible (N,) bool)."""
-    f = _fwd_math(consts, *_columns(xyz, scaling, rotation))
+    depth (N,), conic (N, 3), radius (N,), visible (N,) bool) for consts
+    (30,), each with a leading view axis V for consts (V, 30)."""
+    f = _fwd_math(_per_constant(consts), *_columns(xyz, scaling, rotation))
     inv_det = f["inv_det"]
-    return (torch.stack([f["m2x"], f["m2y"]], dim=1), f["tz"],
+    return (torch.stack([f["m2x"], f["m2y"]], dim=-1), f["tz"],
             torch.stack([f["c"] * inv_det, -f["b"] * inv_det,
-                         f["a"] * inv_det], dim=1),
+                         f["a"] * inv_det], dim=-1),
             f["radius"], f["visible"])
 
 
@@ -175,8 +194,10 @@ def project_adjoint_plain(xyz, scaling, rotation, consts, g_mean2d,
                           g_conic):
     """``projection_pallas._proj_bwd_kernel`` in PyTorch, op for op: the
     gradients of xyz (N, 3), scaling (N, 3) and rotation (N, 4) from those
-    of mean2d and conic. Rows that are not visible get 0."""
-    cs = consts
+    of mean2d (N, 2) and conic (N, 3). Rows that are not visible get 0.
+    With consts (V, 30) the cotangents are (V, N, 2) and (V, N, 3), and
+    the views' gradients are added in view order."""
+    cs = _per_constant(consts)
     x, y, z, sx, sy, sz, qr, qx, qy, qz = _columns(xyz, scaling, rotation)
     f = _fwd_math(cs, x, y, z, sx, sy, sz, qr, qx, qy, qz)
     R00, R01, R02 = cs[0], cs[1], cs[2]
@@ -189,11 +210,11 @@ def project_adjoint_plain(xyz, scaling, rotation, consts, g_mean2d,
                                 cs[29])
 
     live = f["visible"].to(torch.float32)
-    ga = g_conic[:, 0] * live
-    gb = g_conic[:, 1] * live
-    gc = g_conic[:, 2] * live
-    gmx = g_mean2d[:, 0] * live
-    gmy = g_mean2d[:, 1] * live
+    ga = g_conic[..., 0] * live
+    gb = g_conic[..., 1] * live
+    gc = g_conic[..., 2] * live
+    gmx = g_mean2d[..., 0] * live
+    gmy = g_mean2d[..., 1] * live
 
     # conic = (c, -b, a) / det
     inv_det = f["inv_det"]
@@ -304,54 +325,82 @@ def project_adjoint_plain(xyz, scaling, rotation, consts, g_mean2d,
           + F01 * g_hx + F11 * g_hy + F31 * g_hw)
     gz = (R02 * g_pcx + R12 * g_pcy + R22 * g_tz
           + F02 * g_hx + F12 * g_hy + F32 * g_hw)
-    return (torch.stack([gx, gy, gz], dim=1),
-            torch.stack([gsx, gsy, gsz], dim=1),
-            torch.stack([gqr, gqx, gqy, gqz], dim=1))
+    grads = (torch.stack([gx, gy, gz], dim=-1),
+             torch.stack([gsx, gsy, gsz], dim=-1),
+             torch.stack([gqr, gqx, gqy, gqz], dim=-1))
+    if consts.dim() == 1:
+        return grads
+    return tuple(_sum_views(g) for g in grads)
 
 
-def _check(consts, **arrays):
+def _sum_views(g: torch.Tensor) -> torch.Tensor:
+    """(V, N, C) -> (N, C), the views added one after the other, as the
+    adjoint kernel adds them."""
+    total = g[0]
+    for v in range(1, g.shape[0]):
+        total = total + g[v]
+    return total
+
+
+def _check(consts, rows, cotangents=None):
+    """The number of views (None for a single camera's (30,) consts) and of
+    rows; raises on what the kernels do not take. ``rows`` and
+    ``cotangents`` map a name to (tensor, columns): rows are (N, columns),
+    cotangents carry the view axis of ``consts`` before it."""
     dev = consts.device
-    if consts.shape != (N_CONSTS,) or consts.dtype != torch.float32 \
-            or not consts.is_contiguous():
-        raise ValueError(f"consts must be a contiguous ({N_CONSTS},) "
-                         f"float32 tensor")
+    if consts.dtype != torch.float32 or not consts.is_contiguous() \
+            or consts.dim() not in (1, 2) or consts.shape[-1] != N_CONSTS:
+        raise ValueError(f"consts must be a contiguous ({N_CONSTS},) or "
+                         f"(V, {N_CONSTS}) float32 tensor, got "
+                         f"{tuple(consts.shape)} {consts.dtype}")
+    views = consts.shape[0] if consts.dim() == 2 else None
+    if views is not None and not 1 <= views <= MAX_VIEWS:
+        raise ValueError(f"{views} views: the kernels take 1 to {MAX_VIEWS}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    lead = () if views is None else (views,)
     n = None
-    for name, (t, cols) in arrays.items():
-        if t.dim() != 2 or t.shape[1] != cols or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be (N, {cols}) float32, got "
+    for name, (t, cols), shape in (
+            [(k, v, ("N", v[1])) for k, v in rows.items()]
+            + [(k, v, lead + ("N", v[1]))
+               for k, v in (cotangents or {}).items()]):
+        if t.dim() != len(shape) or t.shape[-1] != cols \
+                or tuple(t.shape[:-2]) != shape[:-2] \
+                or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {shape} float32, got "
                              f"{tuple(t.shape)} {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, consts on {dev}")
-        if n is not None and t.shape[0] != n:
-            raise ValueError(f"{name} has {t.shape[0]} rows, not {n}")
-        n = t.shape[0]
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return n
+        if n is not None and t.shape[-2] != n:
+            raise ValueError(f"{name} has {t.shape[-2]} rows, not {n}")
+        n = t.shape[-2]
+    return views, n
 
 
 def project_forward(xyz, scaling, rotation, consts):
     """(mean2d (N, 2), depth (N,), conic (N, 3), radius (N,), visible (N,)
     bool) of xyz (N, 3), scaling (N, 3) and rotation (N, 4) float32, under
-    ``camera_consts``."""
-    n = _check(consts, xyz=(xyz, 3), scaling=(scaling, 3),
-               rotation=(rotation, 4))
+    ``camera_consts`` (30,); under a stack (V, 30) each output has a leading
+    view axis, all views from one launch."""
+    views, n = _check(consts, {"xyz": (xyz, 3), "scaling": (scaling, 3),
+                               "rotation": (rotation, 4)})
     if consts.device.type == "cpu":
         return project_plain(xyz, scaling, rotation, consts)
     dev = consts.device
+    lead = () if views is None else (views,)
     xyz, scaling, rotation = (t.contiguous() for t in (xyz, scaling, rotation))
-    mean2d = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    depth = torch.empty((n,), dtype=torch.float32, device=dev)
-    conic = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    radius = torch.empty((n,), dtype=torch.float32, device=dev)
-    visible = torch.empty((n,), dtype=torch.bool, device=dev)
+    mean2d = torch.empty(lead + (n, 2), dtype=torch.float32, device=dev)
+    depth = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    conic = torch.empty(lead + (n, 3), dtype=torch.float32, device=dev)
+    radius = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    visible = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
     lib = LIB.load()
     with torch.cuda.device(dev):
         err = lib.gh_project_forward(
             xyz.data_ptr(), scaling.data_ptr(), rotation.data_ptr(),
-            consts.data_ptr(), n, mean2d.data_ptr(), depth.data_ptr(),
-            conic.data_ptr(), radius.data_ptr(), visible.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            consts.data_ptr(), n, views or 1, mean2d.data_ptr(),
+            depth.data_ptr(), conic.data_ptr(), radius.data_ptr(),
+            visible.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "project_fwd_kernel")
     project_forward.launches += 1
     return mean2d, depth, conic, radius, visible
@@ -362,10 +411,12 @@ project_forward.launches = 0
 
 def project_backward(xyz, scaling, rotation, consts, g_mean2d, g_conic):
     """The adjoint: (g_xyz (N, 3), g_scaling (N, 3), g_rotation (N, 4))
-    from g_mean2d (N, 2) and g_conic (N, 3); 0 on rows not visible."""
-    n = _check(consts, xyz=(xyz, 3), scaling=(scaling, 3),
-               rotation=(rotation, 4), g_mean2d=(g_mean2d, 2),
-               g_conic=(g_conic, 3))
+    from g_mean2d (N, 2) and g_conic (N, 3), or from (V, N, 2) and
+    (V, N, 3) under consts (V, 30), summed over the views in view order; a
+    view where a row is not visible adds 0."""
+    views, n = _check(consts, {"xyz": (xyz, 3), "scaling": (scaling, 3),
+                               "rotation": (rotation, 4)},
+                      {"g_mean2d": (g_mean2d, 2), "g_conic": (g_conic, 3)})
     if consts.device.type == "cpu":
         return project_adjoint_plain(xyz, scaling, rotation, consts,
                                      g_mean2d, g_conic)
@@ -378,7 +429,7 @@ def project_backward(xyz, scaling, rotation, consts, g_mean2d, g_conic):
     lib = LIB.load()
     with torch.cuda.device(dev):
         err = lib.gh_project_backward(
-            *(t.data_ptr() for t in ins), n, g_xyz.data_ptr(),
+            *(t.data_ptr() for t in ins), n, views or 1, g_xyz.data_ptr(),
             g_scaling.data_ptr(), g_rotation.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "project_bwd_kernel")
@@ -391,9 +442,10 @@ project_backward.launches = 0
 
 class ProjectGaussians(torch.autograd.Function):
     """(mean2d, depth, conic, radius, visible) of (xyz, scaling, rotation)
-    under ``consts``; the backward is the hand-derived adjoint, which
-    zeroes the rows that are not visible. Depth gets no gradient; radius
-    and ``visible`` are not differentiable."""
+    under ``consts`` (30,) or (V, 30); the backward is the hand-derived
+    adjoint, which zeroes the rows that are not visible and sums the views.
+    Depth gets no gradient; radius and ``visible`` are not
+    differentiable."""
 
     @staticmethod
     def forward(ctx, xyz, scaling, rotation, consts):
@@ -414,12 +466,17 @@ class ProjectGaussians(torch.autograd.Function):
 
 
 def project_gaussians_pallas(xyz: torch.Tensor, scaling: torch.Tensor,
-                             rotation: torch.Tensor, camera: Camera, *,
+                             rotation: torch.Tensor,
+                             camera: Union[Camera, Sequence[Camera]], *,
                              scale_modifier: float = 1.0, znear: float = 0.01,
                              zfar: float = 1000.0) -> Projected:
     """The fused-kernel projection, ``ops/projection.project_gaussians``'
-    signature and result."""
-    consts = camera_consts(camera, znear, zfar)
+    signature and result for one camera; for a sequence of V cameras every
+    field has a leading view axis, from one launch each way."""
+    if isinstance(camera, Camera):
+        consts = camera_consts(camera, znear, zfar)
+    else:
+        consts = torch.stack([camera_consts(c, znear, zfar) for c in camera])
     s = scaling * scale_modifier if scale_modifier != 1.0 else scaling
     mean2d, depth, conic, radius, visible = ProjectGaussians.apply(
         xyz, s, rotation, consts)

@@ -51,6 +51,14 @@ class RasterizeConfig:
     # their hand-derived adjoint (ops/projection_cuda.py). The values are
     # the JAX package's, so that its config dicts load unchanged.
     projection_impl: str = "xla"
+    # The JAX package's TPU layout keys, accepted so that its configs load,
+    # with no effect here: the port bins every (Gaussian, tile) pair exactly
+    # with dynamic shapes (no tile or pair caps, no cell walk) and keeps
+    # colours in float32 (no packed rgb lane).
+    pack_rgb: bool = False
+    walk_cells: int = 0
+    max_tiles_per_gaussian: int = 16
+    pairs_per_gaussian: float = 4.5
 
     def __post_init__(self):
         if self.projection_impl not in PROJECTIONS:
@@ -86,7 +94,7 @@ class Composite(torch.autograd.Function):
             tile_range, pair_gid, attrs, height=height, width=width,
             store_contrib=True)
         # the pairs in Gaussian order, for the backward's reduction
-        order = torch.argsort(pair_gid, stable=True)
+        order = torch.argsort(pair_gid, stable=True).to(torch.int32)
         ctx.save_for_backward(attrs, tile_range, pair_gid, rgb, final_t,
                               n_contrib, checkpoints, slot_base, order)
         ctx.size = (height, width)
@@ -103,9 +111,9 @@ class Composite(torch.autograd.Function):
             tile_range, pair_gid, attrs, grad_rgb.contiguous(),
             grad_t.contiguous(), rgb, final_t, n_contrib, checkpoints,
             slot_base, height=height, width=width)
-        grad_attrs = segment_reduce_sorted(
-            pair_gid[order], pair_grads[:, order].contiguous(),
-            attrs.shape[0])
+        # summed per Gaussian in the stable order, read through it
+        grad_attrs = segment_reduce_sorted(pair_gid, pair_grads,
+                                           attrs.shape[0], order=order)
         return grad_attrs, None, None, None, None
 
 
@@ -192,27 +200,36 @@ def multiview_composite_inputs(gaussians: Gaussians, w2cs: torch.Tensor,
     nty_band = -(-height // TILE)
     band_h = nty_band * TILE
     opacity = gaussians.effective_opacity()[:, 0]
-
-    mean2d, conic, color, depth, radius, visible = [], [], [], [], [], []
-    for i in range(v):
-        cam = Camera.from_w2c(w2cs[i], Ks[i], height, width, device=dev)
-        proj = _project(gaussians, cam, config)
-        mean2d.append(torch.stack([proj.mean2d[:, 0],
-                                   proj.mean2d[:, 1] + float(i * band_h)],
-                                  dim=1))
-        conic.append(proj.conic)
-        color.append(_colors(gaussians, cam, sh_degree, use_rgb))
-        depth.append(proj.depth)
-        radius.append(proj.radius)
-        visible.append(proj.visible)
+    cams = [Camera.from_w2c(w2cs[i], Ks[i], height, width, device=dev)
+            for i in range(v)]
+    color = torch.cat([_colors(gaussians, cam, sh_degree, use_rgb)
+                       for cam in cams])
+    if config.projection_impl == "pallas":
+        # every view from one launch of the fused kernel: (V, N, ...)
+        p = PROJECTIONS["pallas"](
+            gaussians.xyz, gaussians.scaling, gaussians.rotation, cams,
+            scale_modifier=config.scale_modifier, znear=config.znear,
+            zfar=config.zfar)
+        band = torch.arange(v, dtype=torch.float32, device=dev) * band_h
+        mean2d = torch.stack([p.mean2d[..., 0],
+                              p.mean2d[..., 1] + band[:, None]], dim=-1)
+        mean2d, conic, depth, radius, visible = (
+            t.flatten(0, 1) for t in (mean2d, p.conic, p.depth, p.radius,
+                                      p.visible))
+    else:
+        projs = [_project(gaussians, cam, config) for cam in cams]
+        mean2d = torch.cat([torch.stack([p.mean2d[:, 0],
+                                         p.mean2d[:, 1] + float(i * band_h)],
+                                        dim=1) for i, p in enumerate(projs)])
+        conic, depth, radius, visible = (
+            torch.cat([getattr(p, k) for p in projs])
+            for k in ("conic", "depth", "radius", "visible"))
     band_lo = torch.repeat_interleave(
         torch.arange(v, dtype=torch.int32, device=dev) * nty_band,
         gaussians.n)
     return composite_inputs(
-        torch.cat(mean2d), torch.cat(conic), torch.cat(color),
-        opacity.repeat(v), torch.cat(depth), torch.cat(radius),
-        torch.cat(visible), height=v * band_h, width=width,
-        y_band=(band_lo, band_lo + nty_band))
+        mean2d, conic, color, opacity.repeat(v), depth, radius, visible,
+        height=v * band_h, width=width, y_band=(band_lo, band_lo + nty_band))
 
 
 def rasterize_multiview(gaussians: Gaussians, w2cs: torch.Tensor,

@@ -34,6 +34,17 @@ from guassianhand_tpu_torch.ops.rasterize import (RasterizeConfig,
 
 
 @dataclasses.dataclass(frozen=True)
+class EditConfig:
+    """The JAX package's texture-edit flags (``render/renderer.py::
+    EditConfig``), accepted so that its edit configs load. The edit path is
+    not ported: the fit CLI refuses a config that enables it."""
+
+    enabled: bool = False
+    edit_left_only: bool = False
+    duplication: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class RendererConfig:
     hidden_dim: int = 128
     feature_dim: int = 131       # 80 scene-code + 51 additional channels

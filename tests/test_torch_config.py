@@ -1,0 +1,86 @@
+"""The port's config loading against the JAX package's: every YAML file in
+``configs/`` loads into the port, every key a file sets holds the JAX
+``load_config``'s value for it, unknown keys still raise, and a config
+that asks for bf16 compute or the edit path is never run silently in
+another way (exact comparisons: these are parsed values)."""
+import dataclasses
+import json
+from pathlib import Path
+
+import pytest
+
+from guassianhand_tpu import config as jconfig
+from guassianhand_tpu_torch import config as tconfig
+from guassianhand_tpu_torch.cli import fit_one_shot
+from tests.torch_parity import one_torch_thread  # noqa: F401
+
+CONFIGS = sorted(Path(__file__).resolve().parents[1].glob("configs/*.yaml"))
+
+
+def leaves(d, prefix=()):
+    """The (path, value) of every value a merged YAML dict sets."""
+    for k, v in d.items():
+        if isinstance(v, dict):
+            yield from leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def get(cfg, path):
+    for k in path:
+        cfg = getattr(cfg, k)
+    return cfg
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
+def test_repo_config_loads_with_jax_values(path):
+    """Each file loads in both packages, and every key it sets (through
+    ``extends:`` too) has the same value in the port's config as in
+    JAX's."""
+    set_keys = list(leaves(jconfig._load_yaml_with_extends(str(path))))
+    assert len(set_keys) > 10
+    want = jconfig.load_config(str(path))
+    got = tconfig.load_config(str(path))
+    for key, _ in set_keys:
+        assert get(got, key) == get(want, key), key
+
+
+def test_unknown_keys_raise():
+    """A key that no dataclass has raises at every level, and the keys the
+    port stores without effect are the JAX defaults when unset."""
+    for bad in ("bogus=1", "data.bogus=1", "model.bogus=1",
+                "model.renderer.raster.bogus=1", "edit.bogus=1",
+                "fit.weights.bogus=1"):
+        with pytest.raises(KeyError, match="bogus"):
+            tconfig.load_config(None, [bad])
+    got, want = tconfig.load_config(), jconfig.load_config()
+    for path in (("data", "data_root"), ("data", "mask_sa"),
+                 ("model", "compute_dtype"), ("model", "interaction_k"),
+                 ("model", "backbone_softmax_fp32"),
+                 ("model", "renderer", "raster", "pairs_per_gaussian"),
+                 ("edit", "enabled")):
+        assert get(got, path) == get(want, path), path
+
+
+def test_bf16_and_edit_are_not_run_silently(tmp_path, capsys):
+    """compute_dtype bfloat16 is reported as computed in float32 (the
+    line the entry points print, and the snapshot's
+    compute_dtype_effective); the fit CLI refuses the edit configs before
+    it builds or writes anything."""
+    cfg = tconfig.load_config(str(CONFIGS[0].parent / "one_shot.yaml"))
+    assert cfg.model.compute_dtype == "bfloat16"
+    line = tconfig.compute_dtype_line(cfg.model)
+    assert "float32" in line and "bfloat16" in line
+    plain = dataclasses.replace(cfg.model, compute_dtype=None)
+    assert tconfig.compute_dtype_line(plain) == "compute dtype: float32"
+    snap = json.loads(Path(tconfig.save_config_snapshot(
+        cfg, str(tmp_path))).read_text())
+    assert snap["compute_dtype_effective"] == "float32"
+    assert snap["model"]["compute_dtype"] == "bfloat16"
+    for name in ("one_shot_edit.yaml", "one_shot_avatar_drive.yaml"):
+        with pytest.raises(SystemExit):
+            fit_one_shot.main(["--config", str(CONFIGS[0].parent / name),
+                               "--synthetic", "--device", "cpu",
+                               f"out_dir={tmp_path / 'runs'}"])
+        assert "edit" in capsys.readouterr().err
+    assert not (tmp_path / "runs").exists()
