@@ -50,7 +50,12 @@ Phases, each reported on its own line:
      dv within 1e-4 * scale, a second call of each kernel equal to the first
      to the bit; beside them the default chunked route and torch's
      scaled_dot_product_attention, and each kernel's bound on the tensor
-     cores in split TF32 beside its bound as fp32 FMAs;
+     cores in split TF32 beside its bound as fp32 FMAs; then the bf16
+     kernels against their bf16 twins at the same edge cases: out, dq, dk
+     and dv within 4 bf16 ulps of max(|ref|, 1/16 of the array's largest)
+     and, in norm, no further from the float32 function than 1.25 times
+     the twins, lse within the forward tolerance, two calls equal to the
+     bit;
   7. raster fwd+bwd: bench.py::main's step (project, bin, composite forward
      and backward at the bench scene), ms per step and rays/s, and the
      composite wrappers' host time a call;
@@ -58,12 +63,23 @@ Phases, each reported on its own line:
      weights) serves R = 4 requests, each one pose in V = 4 orbit views at
      256^2; then again with both kernel switches on
      (projection_impl="pallas", GH_FLASH_ATTN=1), where each request
-     launches the projection once for its 4 views;
+     launches the projection once for its 4 views; on each route one
+     request more under torch.profiler (device busy share, top kernels);
   9. the fit slice: the full-width model fits its per-identity parameters
      to the synthetic target (15,404 points, 256^2, Adam, vgg 0.1, fp32),
      one warm-up step and then 10 steps, once on the default route and once
      with both switches on, which launches all nine kernel functions; the
      warm-up losses of the two (the same parameters) agree within 1e-5;
+     then the flagship configuration (configs/one_shot.yaml: the bf16
+     feature pipeline, the backbone softmax in bf16, its attention cores
+     rematerialised) with both switches on: 10 fit steps and 4 requests of
+     4 views, which launch the bf16 flash attention and not the float32
+     one, logged beside the float32 model's; the bf16 kernels against
+     their twins at its fit's own q, k, v (L = 14,914), timed beside SDPA
+     in bf16 and their bounds (bf16 tensor cores, exp on the SFUs at the
+     card's maximum SM clock, bytes); and scripts/bf16_psnr_gate.py's gate:
+     50 fit steps from one init in fp32, in bf16 and in the flagship's
+     bf16, each bf16 fit's rendered PSNR within 0.1 dB of the fp32 fit's;
  10. reference: a small model rendered, and fitted for 2 steps, on the card
      and on the CPU with the same weights must agree, with the switches off
      and on.
@@ -105,6 +121,11 @@ import torch
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# bf16 on the tensor cores (dense), and the special-function units' exp:
+# 16 a clock on each of the 132 SMs (at the card's maximum SM clock, read
+# from nvidia-smi in phase_device)
+PEAK_BF16_FLOPS = 989e12
+SFU_PER_CLOCK, SMS = 16, 132
 ATOL, RTOL = 2e-5, 1e-4
 # gradient tolerance: atol GRAD_ATOL * (max |twin gradient| of the array)
 # + GRAD_RTOL * |twin gradient|, as tests/test_rasterize.py holds gradients
@@ -115,6 +136,22 @@ GRAD_ATOL, GRAD_RTOL = 2e-4, 2e-3
 # 15k keys rounds apart by more); dq/dk/dv within ATTN_GRAD_ATOL * scale, as
 # tests/test_attention.py holds JAX's flash path
 ATTN_GRAD_ATOL = 1e-4
+# the bf16 attention kernels against their twins, which round at the same
+# points, on the same inputs: out, dq, dk and dv within BF16_ULPS bf16 ulps
+# of the twin's value, or of BF16_FLOOR times the array's largest |value|
+# where that is larger (tests/test_torch_bf16.py holds the twins to JAX's
+# kernel by the same measure). The kernel's float32 sums and exp differ from
+# the twin's in the last bits, which flips the bf16 rounding of a few P (dS)
+# terms, and a flip moves a sum by 2^-8 of that term: near 0 that is many
+# ulps of the value (a change in the last bits of the scores moves the
+# twin's own output by several ulps of 1/256 of its largest value), and with
+# few keys one P near 1 flipped moves dv by several ulps of 1/16 of its
+# largest. So each is also held in norm: its relative error against the
+# float32 function of the same bf16 inputs at most BF16_NORM_RATIO times
+# the twin's
+BF16_ULPS = 4
+BF16_FLOOR = 2.0 ** -4
+BF16_NORM_RATIO = 1.25
 PARAM_ATOL = 1e-4   # card vs CPU, trainable parameters after a fit step
 # card vs CPU after 2 fit steps: |p_card - p_cpu| / |p_cpu - p_0| per array
 PARAM_UPDATE_RTOL = 1e-2
@@ -126,6 +163,8 @@ REQUESTS, VIEWS, HW = 4, 4, 256
 RASTER_STEPS = 20
 RASTER_TURNS = 5   # rounds of parent, this, this, parent with --parent
 FIT_STEPS = 10
+PSNR_STEPS = 50     # scripts/bf16_psnr_gate.py's fit length
+PSNR_GATE_DB = 0.1  # its bar: each bf16 fit's PSNR within this of fp32's
 SPIN_CYCLES = 50_000_000   # 25-30 ms of device time at H100 clocks
 K3_CTA_ITEMS = 128         # sorted items a CTA of csrc/segment_reduce.cu
 REPO = Path(__file__).resolve().parent
@@ -156,6 +195,17 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor,
+              floor: float = BF16_FLOOR) -> torch.Tensor:
+    """|got - want| elementwise in bf16 ulps of max(|want|, floor * the
+    largest |want|)."""
+    got, want = got.float(), want.float()
+    top = float(want.abs().max()) if want.numel() else 0.0
+    ref = want.abs().clamp_min(floor * top)
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    return (got - want).abs() / ulp
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -164,10 +214,15 @@ def phase_device() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
     info = {"nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda,
             "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}
+            "count": torch.cuda.device_count(),
+            "sm_clock_max_mhz": sm_clock_mhz}
     log("device", **info)
     return info
 
@@ -1335,18 +1390,26 @@ def check_attention(label: str, q, k, v, mask, reps: int = 5,
     return row
 
 
-def phase_attention_edges() -> None:
+def phase_attention_edges(dtype=torch.float32) -> None:
     """K5 at shapes the main path does not reach: one live row, every row
     live, no mask, no live row, and N and L that no block divides; live
     counts on the edges of a warp's 16 rows and of a CTA's 64 rows and
     tile (15, 16, 17, 63, 64, 65, 129 of 150); and scores up to about 30
-    in magnitude, where exp's range and the split's lo term matter."""
+    in magnitude, where exp's range and the split's lo term matter. With
+    ``dtype`` bf16 the bf16 kernels (``check_attention_bf16``) on the same
+    cases."""
     rng = np.random.RandomState(4)
 
     def qkv(n, heads=4, scale=1.0):
         return [torch.as_tensor((scale * rng.normal(size=(n, heads, 32)))
-                                .astype(np.float32), device="cuda")
+                                .astype(np.float32), device="cuda").to(dtype)
                 for _ in range(3)]
+
+    def check(label, q, k, v, mask):
+        if dtype == torch.float32:
+            check_attention(label, q, k, v, mask, timed=False)
+        else:
+            check_attention_bf16(label, q, k, v, mask)
 
     n = 77
     one = torch.zeros(n, dtype=torch.bool, device="cuda")
@@ -1358,21 +1421,267 @@ def phase_attention_edges() -> None:
              ("ragged_77", torch.as_tensor(rng.uniform(size=n) < 0.6,
                                            device="cuda")))
     for label, mask in cases:
-        check_attention(label, *qkv(n), mask, timed=False)
+        check(label, *qkv(n), mask)
     n = 150
     for live in (15, 16, 17, 63, 64, 65, 129):
         mask = np.zeros(n, bool)
         mask[rng.choice(n, live, replace=False)] = True
-        check_attention(f"live_{live}_of_{n}", *qkv(n),
-                        torch.as_tensor(mask, device="cuda"), timed=False)
+        check(f"live_{live}_of_{n}", *qkv(n),
+              torch.as_tensor(mask, device="cuda"))
     q, k, _ = qkv(n, scale=2.6)
     v = qkv(n)[0]
-    top = float((torch.einsum("ihd,jhd->hij", q, k) / math.sqrt(32))
-                .abs().max())
+    top = float((torch.einsum("ihd,jhd->hij", q.float(), k.float())
+                 / math.sqrt(32)).abs().max())
     if top < 25:
         raise AssertionError(f"the large-score case reaches |score| {top}")
-    log("attention_large_scores", max_abs_score=top)
-    check_attention(f"large_scores_{n}", q, k, v, None, timed=False)
+    log("attention_large_scores", dtype=str(dtype), max_abs_score=top)
+    check(f"large_scores_{n}", q, k, v, None)
+
+
+def bf16_attention_bounds(n_live: int, heads: int, d: int,
+                          sm_clock_mhz: float) -> dict:
+    """The least time of each bf16 attention kernel over L live rows: the
+    larger of its products on the tensor cores in bf16 (4 D flops a score
+    forward, 8 D dkv, 6 D dq, one MMA a product), its exp (one a score in
+    each kernel) on the special-function units at ``sm_clock_mhz``, and
+    its bytes (q, k, v, dout, out, dq, dk, dv 2 bytes a value, lse and
+    delta 4 a row, each read or written once)."""
+    rows, scores = n_live * heads, n_live * n_live * heads
+    sfu_per_s = SFU_PER_CLOCK * SMS * sm_clock_mhz * 1e6
+    out = {}
+    for name, n_bytes, product in (
+            ("forward", 2 * 4 * rows * d + 4 * rows, 4 * d),
+            ("dkv", 2 * 6 * rows * d + 8 * rows, 8 * d),
+            ("dq", 2 * 5 * rows * d + 8 * rows, 6 * d)):
+        times = {"bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
+                 "tensor_cores": product * scores / PEAK_BF16_FLOPS * 1e3,
+                 "exp": scores / sfu_per_s * 1e3}
+        by = max(times, key=times.get)
+        out[name] = {"bound_ms": times[by],
+                     "bound_by": "bytes" if by == "bytes" else "operations",
+                     "limited_by": by, "ms_by_part": times,
+                     "bytes": n_bytes, "bf16_flops": product * scores,
+                     "exps": scores, "sm_clock_mhz": sm_clock_mhz}
+    return out
+
+
+def check_attention_bf16(label: str, q, k, v, mask, timed: bool = False,
+                         sm_clock_mhz: float = None, reps: int = 5) -> dict:
+    """K5's bf16 forward, dkv and dq kernels against their bf16 twins on
+    the card, over the live rows of ``mask`` (N,) (all if None), q, k, v
+    bf16; raises on disagreement. out, dq, dk and dv within BF16_ULPS bf16
+    ulps (``bf16_ulps``) of the twins' on the same inputs (the backward
+    twin given the kernel forward's lse and delta) and in norm no further
+    from the float32 function than BF16_NORM_RATIO times the twins', lse
+    within ATOL + RTOL |ref|, a second call of
+    each kernel equal to the first to the bit, and through
+    ``flash_attention`` masked rows exactly 0 in the output and in every
+    gradient. Beside them, each one's relative error (in norm) against the
+    float32 function of the same bf16 inputs (the float32 twins), the
+    kernel's and the twin's. ``timed``: the three kernels, the twins, and
+    torch's scaled_dot_product_attention on the same bf16 inputs with the
+    key mask, and the bounds (``bf16_attention_bounds``)."""
+    import torch.nn.functional as F
+
+    from guassianhand_tpu_torch.ops import flash_attention_cuda as fa
+    n, h, d = q.shape
+    live = (torch.arange(n, device="cuda") if mask is None
+            else mask.nonzero()[:, 0])
+    L = live.numel()
+    ql, kl, vl = (t[live].contiguous() for t in (q, k, v))
+    dout = torch.as_tensor(np.random.RandomState(3).normal(
+        size=(n, h, d)).astype(np.float32), device="cuda").to(q.dtype)
+    dol = dout[live].contiguous()
+    out, lse = fa.flash_forward(ql, kl, vl)
+    out_p, lse_p = fa.flash_attention_plain(ql, kl, vl)
+    delta = fa.attention_delta(out, dol)
+    dk, dv = fa.flash_backward_dkv(ql, kl, vl, dol, lse, delta)
+    dq = fa.flash_backward_dq(ql, kl, vl, dol, lse, delta)
+    # the backward twin on the backward kernels' own inputs (the kernel
+    # forward's lse and delta)
+    grads_p = fa._backward_plain(ql, kl, vl, dol, lse, delta, want_dq=True,
+                                 want_dkv=True)
+    again = (*fa.flash_forward(ql, kl, vl),
+             *fa.flash_backward_dkv(ql, kl, vl, dol, lse, delta),
+             fa.flash_backward_dq(ql, kl, vl, dol, lse, delta))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    full = fa.flash_attention(*leaves, mask)
+    full_grads = torch.autograd.grad(full, leaves, dout)
+    # the float32 function of the same (bf16) inputs
+    up = [t.float() for t in (ql, kl, vl)]
+    out_32, lse_32 = fa.flash_attention_plain(*up)
+    grads_32 = fa.flash_attention_backward_plain(*up, out_32, lse_32,
+                                                 dol.float())
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        diff = float((a.float() - b).norm()) if L else 0.0
+        return diff / float(b.norm()) if diff else 0.0
+
+    row = {"scene": label, "n": n, "heads": h, "head_dim": d, "live": L,
+           "dtype": str(q.dtype), "ulps": BF16_ULPS, "floor": BF16_FLOOR}
+    over = {}
+    for name, a, b, b32 in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv),
+                               (out_p, *grads_p), (out_32, *grads_32)):
+        ulps = bf16_ulps(a, b) if L else torch.zeros(0)
+        row[f"{name}_max_abs_err"] = (float((a.float() - b.float()).abs()
+                                            .max()) if L else 0.0)
+        row[f"{name}_max_ulps"] = float(ulps.max()) if L else 0.0
+        row[f"{name}_vs_fp32_rel"] = {"kernel": rel(a, b32),
+                                      "twin": rel(b, b32)}
+        over[name] = int((ulps > BF16_ULPS).sum())
+        over[f"{name}_vs_fp32"] = int(
+            rel(a, b32) > BF16_NORM_RATIO * rel(b, b32))
+    row["lse_max_abs_err"] = float((lse - lse_p).abs().max()) if L else 0.0
+    over["lse"] = int(((lse - lse_p).abs() > ATOL + RTOL * lse_p.abs())
+                      .sum())
+    masked = (torch.ones(n, dtype=torch.bool, device="cuda") if mask is None
+              else ~mask)
+    masked[live] = False
+    over["masked_rows_nonzero"] = int(
+        sum((t[masked] != 0).sum() for t in (full, *full_grads)))
+    over["route_vs_kernel"] = int((full[live] != out).sum())
+    over["second_call_differs"] = int(sum(
+        (a != b).sum() for a, b in zip((out, lse, dk, dv, dq), again)))
+    over["types"] = int(any(t.dtype != q.dtype for t in (out, dq, dk, dv))
+                        or lse.dtype != torch.float32)
+    row["over_tol"] = over
+    if timed:
+        qh, kh, vh = (t.transpose(0, 1)[None].contiguous() for t in (q, k, v))
+        key_mask = None if mask is None else mask[None, None, None, :]
+        sdpa_leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+        do_h = dout.transpose(0, 1)[None].contiguous()
+
+        def sdpa_forward():
+            return F.scaled_dot_product_attention(*sdpa_leaves,
+                                                  attn_mask=key_mask)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_forward(), sdpa_leaves, do_h)
+
+        sdpa_out = sdpa_forward()[0].transpose(0, 1)[live]
+        row["sdpa_vs_kernel_max_ulps"] = float(
+            bf16_ulps(out, sdpa_out.detach()).max())
+        args = (ql, kl, vl, dol, lse, delta)
+        row["fwd_ms"] = time_cuda(lambda: fa.flash_forward(*args[:3]), reps)
+        row["dkv_ms"] = time_cuda(lambda: fa.flash_backward_dkv(*args), reps)
+        row["dq_ms"] = time_cuda(lambda: fa.flash_backward_dq(*args), reps)
+        row["fwd_plain_ms"] = time_cuda(
+            lambda: fa.flash_attention_plain(ql, kl, vl), reps=1, warmup=1)
+        row["bwd_plain_ms"] = time_cuda(
+            lambda: fa.flash_attention_backward_plain(
+                ql, kl, vl, out_p, lse_p, dol), reps=1, warmup=1)
+        row["sdpa_fwd_ms"] = time_cuda(sdpa_forward, reps)
+        row["sdpa_fwd_bwd_ms"] = time_cuda(sdpa_fwd_bwd, reps)
+        row["bounds"] = bf16_attention_bounds(L, h, d, sm_clock_mhz)
+    log("attention_bf16_vs_plain", **row)
+    bad = {k: v for k, v in over.items() if v}
+    if bad:
+        raise AssertionError(f"bf16 attention kernels disagree with their "
+                             f"twins at {label}: {bad}")
+    return row
+
+
+def flagship_config():
+    """configs/one_shot.yaml's model: the bf16 feature pipeline with the
+    backbone softmax in bf16 and its attention cores rematerialised."""
+    from guassianhand_tpu_torch.config import load_config
+    cfg = load_config(str(REPO / "configs" / "one_shot.yaml")).model
+    if (cfg.compute_dtype, cfg.backbone_softmax_fp32,
+            cfg.backbone_attn_remat) != ("bfloat16", False, True):
+        raise AssertionError(f"configs/one_shot.yaml no longer asks for the "
+                             f"bf16 pipeline: {cfg}")
+    return cfg
+
+
+def phase_flagship(fp32_fit: dict, fp32_serve: dict) -> dict:
+    """The flagship configuration (``flagship_config``) at full width with
+    both kernel switches on: FIT_STEPS fit steps and REQUESTS requests of
+    VIEWS views, each with the launch counts zeroed just before and read
+    just after (the bf16 flash attention must launch, the float32 one must
+    not); their step and request times, device busy shares and peak bytes
+    logged beside the float32 model's on the same route (``fp32_fit`` and
+    ``fp32_serve``, phase_fit's and phase_slice's results)."""
+    cfg = flagship_config()
+    fit = phase_fit(kernels=True, model_cfg=cfg, route="flagship_bf16",
+                    want=FIT_KERNELS + FLASH_BF16)
+    _, serve_launches, serve = phase_slice(
+        kernels=True, model_cfg=cfg, route="flagship_bf16",
+        want=SERVE_FLAGSHIP)
+
+    def fit_row(x):
+        return {"ms_per_step_mean": float(np.mean([r["ms"] for r in
+                                                   x["rows"]])),
+                "device_busy_ms": x["busy_ms"],
+                "device_busy_share": x["busy_share"],
+                "peak_bytes": x["peak_bytes"], "warmup_loss": x["warmup_loss"]}
+
+    def serve_row(x):
+        return {"model_ms_mean": float(np.mean([r["model_ms"] for r in
+                                                x["rows"]])),
+                "batch_ms_mean": float(np.mean([r["batch_ms"] for r in
+                                                x["rows"]])),
+                "device_busy_ms": x["profile"]["device_busy_ms"],
+                "device_busy_share": x["profile"]["device_busy_share"],
+                "peak_bytes": x["peak_bytes"]}
+
+    log("flagship", config="configs/one_shot.yaml", route="kernels",
+        fit={"bf16": fit_row(fit), "fp32": fit_row(fp32_fit)},
+        serve={"bf16": serve_row(serve), "fp32": serve_row(fp32_serve)},
+        launches={"fit": fit["launches"], "serve": serve_launches})
+    return {"fit": fit, "serve_launches": serve_launches}
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
+    mse = float(((a - b) ** 2).mean())
+    return 10.0 * math.log10(1.0 / max(mse, 1e-12))
+
+
+def phase_bf16_psnr_gate(steps: int = PSNR_STEPS) -> dict:
+    """scripts/bf16_psnr_gate.py on the card: the full-width fit scene fit
+    for ``steps`` steps from one seeded init, in fp32, in bf16, and in bf16
+    with the backbone softmax in bf16 and its attention cores
+    rematerialised (configs/one_shot.yaml's model), each with both kernel
+    switches on; the fitted render's PSNR against the target of each bf16
+    arm must lie within 0.1 dB of the fp32 arm's (the JAX package's bar,
+    configs/one_shot.yaml)."""
+    from guassianhand_tpu_torch.cli.render_360 import MODEL_CONFIG
+    from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
+                                                       synthetic_batch)
+    from guassianhand_tpu_torch.models.one_shot import no_tf32
+    scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
+                                     width=HW, device="cuda")
+    batch = synthetic_batch(scene, seed=0, with_target=True)
+    bf16 = dataclasses.replace(MODEL_CONFIG, compute_dtype="bfloat16")
+    arms = {"fp32": MODEL_CONFIG, "bf16": bf16,
+            "bf16_softmax_bf16_remat": flagship_config()}
+    rows = {}
+    with flash_switch(True):
+        for name, cfg in arms.items():
+            model, step, b, _, _ = fit_model_and_step(
+                kernel_config(cfg, True), HW, dict(batch), "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                loss, _ = step(b)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+            with torch.no_grad(), no_tf32():
+                rgb = model(b, HW, HW)["comp_rgb"][0, 0]
+            rows[name] = {"final_loss": float(loss), "ms_per_step": ms,
+                          "psnr_db": psnr(rgb, b["target_rgb"][0]),
+                          "finite": bool(torch.isfinite(rgb).all())}
+            del model, step, b
+    delta = {name: abs(r["psnr_db"] - rows["fp32"]["psnr_db"])
+             for name, r in rows.items() if name != "fp32"}
+    log("bf16_psnr_gate", steps=steps, arms=rows, psnr_delta_db=delta,
+        gate_db=PSNR_GATE_DB)
+    if not all(r["finite"] for r in rows.values()):
+        raise AssertionError(f"a fitted render is not finite: {rows}")
+    if max(delta.values()) > PSNR_GATE_DB:
+        raise AssertionError(f"bf16 fits more than {PSNR_GATE_DB} dB from "
+                             f"the fp32 fit: {delta}")
+    return {"arms": rows, "delta_db": delta}
 
 
 def phase_raster_fwd_bwd(parent=None) -> dict:
@@ -1454,12 +1763,16 @@ def phase_raster_fwd_bwd(parent=None) -> dict:
     return row
 
 
-def phase_slice(kernels: bool = False):
+def phase_slice(kernels: bool = False, model_cfg=None,
+                route: str = None, want: tuple = None):
     """R requests of V views of the full-width avatar, on the default route
     or with both kernel switches on (where each request must launch the
-    projection once for its V views); returns the last request's composite
-    inputs (the avatar's projected Gaussians), the launch counts, and the
-    last request's Gaussians and cameras."""
+    projection once for its V views), of ``model_cfg`` (render_360's
+    MODEL_CONFIG, fp32, unless given); ``want`` the kernels the requests
+    must launch (all others must not launch); then a profiled request.
+    Returns the last request's composite inputs (the avatar's projected
+    Gaussians), the launch counts, the last request's Gaussians and
+    cameras, the request rows and the profile."""
     from guassianhand_tpu_torch.cli.render_360 import (MODEL_CONFIG,
                                                        orbit_batch,
                                                        render_request)
@@ -1468,8 +1781,8 @@ def phase_slice(kernels: bool = False):
     from guassianhand_tpu_torch.models.one_shot import build_model
     from guassianhand_tpu_torch.ops.rasterize import multiview_composite_inputs
 
-    route = "kernels" if kernels else "default"
-    cfg = kernel_config(MODEL_CONFIG, kernels)
+    route = route or ("kernels" if kernels else "default")
+    cfg = kernel_config(model_cfg or MODEL_CONFIG, kernels)
     t0 = time.perf_counter()
     scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
                                      width=HW, device="cuda")
@@ -1490,7 +1803,7 @@ def phase_slice(kernels: bool = False):
         torch.cuda.synchronize()
         return batch, out, (t_b - t_a) * 1e3, (time.perf_counter() - t_b) * 1e3
 
-    want = SERVE_KERNELS if kernels else SERVE_DEFAULT
+    want = want or (SERVE_KERNELS if kernels else SERVE_DEFAULT)
     with flash_switch(kernels):
         request(1000)                                  # warm-up
         torch.cuda.reset_peak_memory_stats()
@@ -1531,16 +1844,17 @@ def phase_slice(kernels: bool = False):
             launches=launches, peak_bytes=peak)
         check_launches(f"the serving slice ({route})", launches, want)
         batch, out = results[-1][0], results[-1][1]
-        if not kernels:
-            phase_profile(lambda: request(REQUESTS),
-                          lambda: model.features(batch), rows)
+        prof = phase_profile(lambda: request(REQUESTS),
+                             lambda: model.features(batch), rows, route)
     gs = out["3dgs"][0]
     rcfg = cfg.renderer
     w2cs, Ks = batch["w2c_render"][0], batch["K_render"][0]
     inputs = multiview_composite_inputs(
         gs, w2cs, Ks, height=HW, width=HW, sh_degree=rcfg.sh_degree,
         use_rgb=rcfg.use_rgb, config=rcfg.raster)
-    return inputs, launches, {"gaussians": gs, "w2cs": w2cs, "Ks": Ks}
+    return inputs, launches, {"gaussians": gs, "w2cs": w2cs, "Ks": Ks,
+                              "rows": rows, "peak_bytes": peak,
+                              "profile": prof}
 
 
 def _device_us(event) -> float:
@@ -1564,7 +1878,8 @@ def device_profile(fn):
             [[e.key[:60], _device_us(e) / 1e3, e.count] for e in top])
 
 
-def phase_profile(run_request, run_features, rows) -> None:
+def phase_profile(run_request, run_features, rows,
+                  route: str = "default") -> dict:
     """Where a request's time goes: one request under torch.profiler (the
     kernels' device time by name, and the device's busy share of the
     unprofiled request time), and the feature pipeline timed alone."""
@@ -1573,45 +1888,60 @@ def phase_profile(run_request, run_features, rows) -> None:
     request_ms = float(np.mean([r["batch_ms"] + r["model_ms"] for r in rows]))
     with torch.inference_mode(), no_tf32():
         features_ms = time_cuda(run_features, reps=3, warmup=1)
-    log("profile", device_busy_ms=busy_ms, request_ms_unprofiled=request_ms,
-        device_busy_share=busy_ms / request_ms,
-        features_ms=features_ms,
-        model_ms_mean=float(np.mean([r["model_ms"] for r in rows])),
-        batch_ms_mean=float(np.mean([r["batch_ms"] for r in rows])),
-        top_device_ms=top)
+    row = dict(route=route, device_busy_ms=busy_ms,
+               request_ms_unprofiled=request_ms,
+               device_busy_share=busy_ms / request_ms,
+               features_ms=features_ms,
+               model_ms_mean=float(np.mean([r["model_ms"] for r in rows])),
+               batch_ms_mean=float(np.mean([r["batch_ms"] for r in rows])),
+               top_device_ms=top)
+    log("profile", **row)
+    return row
 
 
 def zero_launches() -> None:
-    for wrapper in launch_counters().values():
-        wrapper.launches = 0
+    for wrapper, attr in launch_counters().values():
+        setattr(wrapper, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: w.launches for name, w in launch_counters().items()}
+    return {name: getattr(w, attr)
+            for name, (w, attr) in launch_counters().items()}
 
 
 def launch_counters() -> dict:
+    """Each kernel's name: (its wrapper, the wrapper's counter of it). The
+    flash attention wrappers count their float32 and bf16 kernels apart."""
     from guassianhand_tpu_torch.ops import flash_attention_cuda as fa
     from guassianhand_tpu_torch.ops import projection_cuda as pc
     from guassianhand_tpu_torch.ops import rasterize_cuda as rc
     from guassianhand_tpu_torch.ops import segreduce_cuda as sr
-    return {"composite_forward": rc.composite_forward,
-            "composite_plan": rc.chunk_plan,
-            "composite_backward": rc.composite_backward,
-            "segment_reduce_sorted": sr.segment_reduce_sorted,
-            "project_forward": pc.project_forward,
-            "project_backward": pc.project_backward,
-            "flash_forward": fa.flash_forward,
-            "flash_backward_dkv": fa.flash_backward_dkv,
-            "flash_backward_dq": fa.flash_backward_dq}
+    counters = {"composite_forward": rc.composite_forward,
+                "composite_plan": rc.chunk_plan,
+                "composite_backward": rc.composite_backward,
+                "segment_reduce_sorted": sr.segment_reduce_sorted,
+                "project_forward": pc.project_forward,
+                "project_backward": pc.project_backward,
+                "flash_forward": fa.flash_forward,
+                "flash_backward_dkv": fa.flash_backward_dkv,
+                "flash_backward_dq": fa.flash_backward_dq}
+    out = {name: (w, "launches") for name, w in counters.items()}
+    for name in FLASH_FP32:
+        out[f"{name}_bf16"] = (counters[name], "launches_bf16")
+    return out
 
 
-# the kernels each route launches: the default route's four, and with both
-# switches on all nine
+# the kernels each route launches: the default route's four; with both
+# switches on the projection and the float32 flash attention too, or in a
+# bf16 model (the flagship config) the bf16 flash attention instead
+FLASH_FP32 = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
+FLASH_BF16 = tuple(f"{name}_bf16" for name in FLASH_FP32)
 DEFAULT_ROUTE = ("composite_forward", "composite_plan", "composite_backward",
                  "segment_reduce_sorted")
+FIT_KERNELS = DEFAULT_ROUTE + ("project_forward", "project_backward")
 SERVE_DEFAULT = ("composite_forward", "composite_plan")
 SERVE_KERNELS = SERVE_DEFAULT + ("project_forward", "flash_forward")
+SERVE_FLAGSHIP = SERVE_DEFAULT + ("project_forward", "flash_forward_bf16")
 
 
 def kernel_config(cfg, kernels: bool):
@@ -1667,7 +1997,8 @@ def fit_model_and_step(cfg, hw: int, batch, device: str):
             optimizer)
 
 
-def phase_fit(kernels: bool = False) -> dict:
+def phase_fit(kernels: bool = False, model_cfg=None, route: str = None,
+              want: tuple = None) -> dict:
     """The slice: the full-width one-shot fit at bench_fit_step's workload
     (778-vertex hands subdivided twice, 15,404 points, 256^2, vgg 0.1,
     fp32), on the default route or with both kernel switches on. One
@@ -1676,7 +2007,9 @@ def phase_fit(kernels: bool = False) -> dict:
     warm-up loss (the parameters' first, before any update) and the fitted
     avatar's inputs of the kernels: its composite inputs in the fit view,
     its Gaussians and camera, and the interaction attention's q, k, v and
-    mask."""
+    mask. ``model_cfg`` is the model (render_360's MODEL_CONFIG, fp32,
+    unless given), ``want`` the kernels the steps must launch (all others
+    must not launch)."""
     from guassianhand_tpu_torch.cli.render_360 import MODEL_CONFIG
     from guassianhand_tpu_torch.core.camera import Camera
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
@@ -1685,8 +2018,8 @@ def phase_fit(kernels: bool = False) -> dict:
     from guassianhand_tpu_torch.nn import heads
     from guassianhand_tpu_torch.ops.rasterize import multiview_composite_inputs
     from guassianhand_tpu_torch.train.fit import trainable_mask
-    route = "kernels" if kernels else "default"
-    cfg = kernel_config(MODEL_CONFIG, kernels)
+    route = route or ("kernels" if kernels else "default")
+    cfg = kernel_config(model_cfg or MODEL_CONFIG, kernels)
     t0 = time.perf_counter()
     scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
                                      width=HW, device="cuda")
@@ -1747,8 +2080,8 @@ def phase_fit(kernels: bool = False) -> dict:
         if not want_moved <= set(moved):
             raise AssertionError(f"trainable maps that did not move: "
                                  f"{sorted(want_moved - set(moved))}")
-        check_launches(f"the fit ({route})", launches,
-                       tuple(launch_counters()) if kernels else DEFAULT_ROUTE)
+        check_launches(f"the fit ({route})", launches, want or (
+            FIT_KERNELS + FLASH_FP32 if kernels else DEFAULT_ROUTE))
         # one more forward, with the interaction attention's inputs kept
         captured = []
         attend = heads.blockwise_attention
@@ -1770,7 +2103,8 @@ def phase_fit(kernels: bool = False) -> dict:
         gs, w2c, K, height=HW, width=HW, sh_degree=rcfg.sh_degree,
         use_rgb=rcfg.use_rgb, config=rcfg.raster)
     return {"inputs": inputs, "launches": launches, "rows": rows,
-            "warmup_loss": warmup_loss, "gaussians": gs,
+            "warmup_loss": warmup_loss, "gaussians": gs, "peak_bytes": peak,
+            "busy_ms": busy_ms, "busy_share": busy_ms / float(np.mean(ms)),
             "camera": Camera.from_w2c(w2c[0], K[0], HW, HW, device="cuda"),
             "attention": captured[0]}
 
@@ -1981,6 +2315,7 @@ def main(argv=None) -> int:
     phase_projection_views()
     phase_segment_reduce_edges(parent)
     phase_attention_edges()
+    phase_attention_edges(torch.bfloat16)
     phase_raster_fwd_bwd(parent)
     avatar_inputs, serve_launches, _ = phase_slice()
     avatar_row = check_composite("avatar_4x256", avatar_inputs, parent=parent)
@@ -1995,7 +2330,7 @@ def main(argv=None) -> int:
             req.xyz, req.scaling, req.rotation)),
         [Camera.from_w2c(w, k, HW, HW, device="cuda")
          for w, k in zip(request["w2cs"], request["Ks"])], parent=parent)
-    del request, req
+    del req
     default_fit, kernel_fit = phase_fit_routes()
     fit_launches = default_fit["launches"]
     fit_grad = check_gradients("fit_256", default_fit["inputs"],
@@ -2007,7 +2342,15 @@ def main(argv=None) -> int:
     attn = check_attention("fit_256", *kernel_fit["attention"][:3],
                            kernel_fit["attention"][3], parent=parent)
     kfit_launches = kernel_fit["launches"]
-    del default_fit, kernel_fit, gs
+    flagship = phase_flagship(kernel_fit, request)
+    del default_fit, kernel_fit, gs, request
+    attn16 = check_attention_bf16(
+        "fit_256_bf16", *flagship["fit"]["attention"], timed=True,
+        sm_clock_mhz=info["sm_clock_max_mhz"])
+    bf16_launches = flagship["fit"]["launches"]
+    flagship_serve = flagship["serve_launches"]
+    del flagship
+    phase_bf16_psnr_gate()
     for kernels in (False, True):
         phase_reference(kernels)
         phase_fit_reference(kernels)
@@ -2174,6 +2517,30 @@ def main(argv=None) -> int:
         "live_rows": attn["live"], "parent_ms": attn["dq_parent_ms"],
         "bound_ms_fp32_cores": attn["bounds"]["dq"]["fp32"]["bound_ms"],
     }]
+    for name, key, err, plain, library in (
+            ("flash_forward", "fwd", ("out",), "fwd_plain_ms",
+             "sdpa_fwd_ms"),
+            ("flash_backward_dkv", "dkv", ("dk", "dv"), "bwd_plain_ms", None),
+            ("flash_backward_dq", "dq", ("dq",), "bwd_plain_ms", None)):
+        part = {"fwd": "forward"}.get(key, key)
+        kernels.append({
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": "guassianhand_tpu_torch/csrc/flash_attention.cu",
+            "replaces": next(k["replaces"] for k in kernels
+                             if k["name"] == name) + ", bf16 inputs",
+            "launches": bf16_launches[f"{name}_bf16"],
+            "launches_by_path": {
+                "fit_flagship_bf16": bf16_launches[f"{name}_bf16"],
+                "serve_flagship_bf16": flagship_serve[f"{name}_bf16"]},
+            "max_abs_err": max(attn16[f"{e}_max_abs_err"] for e in err),
+            "max_ulps": max(attn16[f"{e}_max_ulps"] for e in err),
+            "ms": attn16[f"{key}_ms"], "plain_ms": attn16[plain],
+            "bound_ms": attn16["bounds"][part]["bound_ms"],
+            "bound_by": attn16["bounds"][part]["bound_by"],
+            "bound_limited_by": attn16["bounds"][part]["limited_by"],
+            "library_ms": attn16[library] if library else None,
+            "sdpa_fwd_bwd_ms": attn16["sdpa_fwd_bwd_ms"],
+            "live_rows": attn16["live"]})
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel timing failed")
     print(json.dumps({"kernels": kernels}))

@@ -11,8 +11,9 @@ prediction/target PNGs every 10 steps under ``vis/`` and a checkpoint at the
 end, all under ``<out_dir>/<expname>``. Runs on ``cuda`` unless
 ``--device cpu``. Evaluation (``--run_val``), the InterHand2.6M data path,
 the texture-edit fit and the PLY export are not ported yet, and are
-refused. The port computes in float32 whatever ``model.compute_dtype``
-says; the run prints one line saying so and its config snapshot records
+refused. ``model.compute_dtype`` takes effect (``configs/one_shot.yaml``
+fits with a bf16 feature pipeline); the run prints the type the model
+computes in, and its config snapshot records it as
 ``compute_dtype_effective``.
 """
 from __future__ import annotations

@@ -8,9 +8,10 @@ synthetic two-hand scene in one pose, orbit views, PNG frames.
 Each call to the model renders ``--views_per_call`` views of the pose in one
 stacked multi-view raster. Runs on ``cuda`` unless ``--device cpu``. The
 model is ``MODEL_CONFIG`` unless a config file or ``model.*`` overrides are
-given. The port computes in float32 whatever ``model.compute_dtype`` says;
-the run prints one line saying so, and the config snapshot it writes beside
-the frames records ``compute_dtype_effective``.
+given; ``configs/one_shot.yaml`` builds a bf16 feature pipeline
+(``model.compute_dtype``). The run prints the type the model computes in,
+and the config snapshot it writes beside the frames records it as
+``compute_dtype_effective``.
 """
 from __future__ import annotations
 

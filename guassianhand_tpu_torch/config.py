@@ -9,10 +9,10 @@ value; unknown keys raise. Not every key has an effect yet: the
 InterHand2.6M paths and flags of ``DataConfig`` (the synthetic scene reads
 none of them), the edit settings (``data.edit``, ``data.image_path``,
 ``data.mask_path``, ``edit``; the fit CLI refuses an edit config), the TPU
-layout keys of ``RasterizeConfig`` and the XLA knobs of ``OneShotConfig``
-(documented there), and ``model.compute_dtype``: the port computes in
-float32, which the entry points print and the snapshot records as
-``compute_dtype_effective``.
+layout keys of ``RasterizeConfig`` and the XLA knob ``backbone_scan`` of
+``OneShotConfig`` (documented there). ``model.compute_dtype`` takes effect:
+the entry points print the type the feature pipeline computes in, and the
+snapshot records it as ``compute_dtype_effective``.
 """
 from __future__ import annotations
 
@@ -22,13 +22,10 @@ import os
 import typing
 from typing import Any, Dict, List, Optional
 
-from guassianhand_tpu_torch.models.one_shot import OneShotConfig
+from guassianhand_tpu_torch.models.one_shot import (OneShotConfig,
+                                                    compute_dtype_of)
 from guassianhand_tpu_torch.render.renderer import EditConfig
 from guassianhand_tpu_torch.train.fit import FitConfig
-
-# the type every port entry point computes in, whatever model.compute_dtype
-# asks for (the JAX package's bfloat16 pipeline is not ported)
-COMPUTE_DTYPE_EFFECTIVE = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,14 +133,19 @@ def load_config(path: Optional[str] = None,
     return _from_dict(ExperimentConfig, d)
 
 
+def compute_dtype_effective(model: OneShotConfig) -> str:
+    """The name of the type the model's feature pipeline computes in."""
+    dt = compute_dtype_of(model)
+    return "float32" if dt is None else str(dt).removeprefix("torch.")
+
+
 def compute_dtype_line(model: OneShotConfig) -> str:
     """The one line an entry point prints about the type it computes in."""
-    asked = model.compute_dtype
-    if asked in (None, COMPUTE_DTYPE_EFFECTIVE):
-        return f"compute dtype: {COMPUTE_DTYPE_EFFECTIVE}"
-    return (f"compute dtype: {COMPUTE_DTYPE_EFFECTIVE} (model.compute_dtype "
-            f"{asked} is not ported; the port computes in "
-            f"{COMPUTE_DTYPE_EFFECTIVE})")
+    line = f"compute dtype: {compute_dtype_effective(model)}"
+    if compute_dtype_of(model) is not None:
+        line += (" (the feature pipeline; parameters, the renderer, the "
+                 "losses and the rasterizer float32)")
+    return line
 
 
 def save_config_snapshot(cfg: ExperimentConfig, run_dir: str) -> str:
@@ -152,7 +154,7 @@ def save_config_snapshot(cfg: ExperimentConfig, run_dir: str) -> str:
     os.makedirs(run_dir, exist_ok=True)
     path = os.path.join(run_dir, "config_snapshot.json")
     snap = dataclasses.asdict(cfg)
-    snap["compute_dtype_effective"] = COMPUTE_DTYPE_EFFECTIVE
+    snap["compute_dtype_effective"] = compute_dtype_effective(cfg.model)
     with open(path, "w") as f:
         json.dump(snap, f, indent=1)
     return path

@@ -24,8 +24,14 @@ parameter: ``static_features`` computes them once for a one-shot fit and
 eval semantics (no dropout), as the JAX fit step applies it.
 
 Parameters carry the reference ``state_dict`` names, so
-``compat/from_jax.py`` and a reference checkpoint both load by key. Runs in
-fp32; on the card the caller turns TF32 off (``no_tf32``).
+``compat/from_jax.py`` and a reference checkpoint both load by key. They
+are float32 whatever ``compute_dtype`` says. With ``compute_dtype=
+"bfloat16"`` the frozen feature pipeline computes in bf16, as the JAX
+package's: the embedders, the pointnets, the upsampler, both backbones, the
+additional-features FC and the interaction attention; ``hidden`` is cast
+back to float32, and the renderer heads, the appearance residuals, the
+losses and the rasterizer stay float32. With None it all runs in float32;
+on the card the caller turns TF32 off (``no_tf32``).
 """
 from __future__ import annotations
 
@@ -74,18 +80,31 @@ class OneShotConfig:
     # store color_b as the rgb triple the renderer reads (3, Hm, Wm)
     # instead of the reference's 48 channels; renders are the same
     narrow_color_b: bool = False
-    # "bfloat16" asks for the JAX package's bf16 feature pipeline, which is
-    # not ported: the port computes in float32 whatever this says, and the
-    # entry points say so (config.compute_dtype_effective)
+    # "bfloat16" runs the frozen feature pipeline in bf16 (parameters stay
+    # float32); None or "float32" runs everything in float32
     compute_dtype: Optional[str] = None
-    # the JAX package's softmax precision under bf16, and its XLA-only
-    # knobs (lax.scan over the blocks, rematerialised attention cores):
-    # accepted so that its configs load, with no effect in float32 eager
-    # PyTorch
+    # under bf16, the backbones' attention softmax and AV product in float32
+    # (True) or in bf16 (False)
     backbone_softmax_fp32: bool = True
-    backbone_scan: bool = False
+    # recompute the backbones' attention cores in the backward instead of
+    # keeping their probabilities (the same function to the bit)
     backbone_attn_remat: bool = False
+    # the JAX package's lax.scan over the backbone blocks, an XLA compile
+    # knob: accepted so that its configs load, with no effect here
+    backbone_scan: bool = False
     renderer: RendererConfig = RendererConfig()
+
+
+COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(cfg: OneShotConfig) -> Optional[torch.dtype]:
+    """The torch type the feature pipeline computes in under ``cfg``: None
+    for float32, else ``torch.bfloat16``; other names raise."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r} is not one of "
+                         f"{sorted(k for k in COMPUTE_DTYPES if k)} or None")
+    return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
 @contextlib.contextmanager
@@ -108,34 +127,42 @@ class OneShotAvatarModel(nn.Module):
     def __init__(self, cfg: OneShotConfig = OneShotConfig()):
         super().__init__()
         self.cfg = c = cfg
+        dt = compute_dtype_of(c)
         s = c.plane_size
         uv_dim = 2 + pe_dim(2, c.pe_levels)
         xyz_dim = 3 + pe_dim(3, c.pe_levels)
         self.camera_embedder = MLP(25, c.camera_embed_dim, c.camera_embed_dim,
-                                   n_hidden_layers=1, activation="silu")
+                                   n_hidden_layers=1, activation="silu",
+                                   compute_dtype=dt)
         self.pose_embedder = MLP(96, c.pose_embed_dim, c.pose_embed_dim,
-                                 n_hidden_layers=1, activation="silu")
+                                 n_hidden_layers=1, activation="silu",
+                                 compute_dtype=dt)
         self.point_encoder_texture = LocalPoolPointnet(
-            uv_dim + c.identity_channels, c_dim=c.token_channels, plane_size=s)
+            uv_dim + c.identity_channels, c_dim=c.token_channels, plane_size=s,
+            compute_dtype=dt)
         self.point_encoder_shade = LocalPoolPointnet(
             uv_dim + xyz_dim + 1 + c.pose_embed_dim + c.camera_embed_dim,
-            c_dim=c.token_channels, plane_size=s)
+            c_dim=c.token_channels, plane_size=s, compute_dtype=dt)
         self.tokenizer_texture = TriplaneLearnablePositionalEmbedding(
             s, c.token_channels, c.n_plane)
         self.tokenizer_shade = TriplaneLearnablePositionalEmbedding(
             s, c.token_channels, c.n_plane)
+        backbone = dict(compute_dtype=dt, softmax_fp32=c.backbone_softmax_fp32,
+                        attn_remat=c.backbone_attn_remat)
         self.backbone = Transformer1D(c.token_channels, c.backbone_layers,
-                                      c.backbone_heads, c.backbone_head_dim)
+                                      c.backbone_heads, c.backbone_head_dim,
+                                      **backbone)
         self.backbone_shade = Transformer1D(
             c.token_channels, c.backbone_layers, c.backbone_heads,
-            c.backbone_head_dim)
-        self.post_processor_texture = TriplaneUpsampler(c.token_channels,
-                                                        c.scene_code_channels)
+            c.backbone_head_dim, **backbone)
+        self.post_processor_texture = TriplaneUpsampler(
+            c.token_channels, c.scene_code_channels, compute_dtype=dt)
         self.additional_features_fc = AdditionalFeaturesFC(
             uv_dim + xyz_dim + 1 + c.identity_channels + c.pose_embed_dim,
-            c.additional_feature_dim)
+            c.additional_feature_dim, compute_dtype=dt)
         self.renderer = GSRenderer(c.renderer,
-                                   interaction_cap=c.interaction_cap)
+                                   interaction_cap=c.interaction_cap,
+                                   compute_dtype=dt)
 
         mh, mw = c.residual_map_hw
         zeros = torch.zeros
@@ -249,6 +276,9 @@ class OneShotAvatarModel(nn.Module):
                            dim=-1)                              # (B, N, 131)
         hidden, inter_overflow = self.renderer.self_attn_layer(
             hidden, mask=batch["inter_mask"], return_overflow=True)
+        # everything downstream (the renderer heads, the appearance
+        # residuals, the rasterizer) is float32 whatever the compute dtype
+        hidden = hidden.float()
         return {"hidden": hidden, "codes": codes, "additional": additional,
                 "camera_feats": camera_feats, "pose_feats": pose_feats,
                 "id_vert": id_vert, "uv_n": uv_n, "points": points,

@@ -12,6 +12,12 @@
   heads of f // 4; rows outside the mask pass through unchanged. With
   ``cap`` only the first max(128, cap) interacting rows attend (among
   themselves) and the rest pass through too; their count is the overflow.
+
+``compute_dtype`` on ``AdditionalFeaturesFC`` and ``SelfAttn`` is the JAX
+package's flax ``dtype``: their Dense layers (q, k, v, the output
+projection and the MLPResBlock) compute in it with float32 parameters; the
+LayerNorm before them takes none, and the attention keeps float32
+statistics (``ops/blockwise_attention.py``).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from guassianhand_tpu_torch.core.gaussians import Gaussians
-from guassianhand_tpu_torch.nn.mlp import LN_EPS, MLPBlock, MLPResBlock
+from guassianhand_tpu_torch.nn.mlp import LN_EPS, Linear, MLPBlock, MLPResBlock
 from guassianhand_tpu_torch.ops.blockwise_attention import blockwise_attention
 
 
@@ -110,9 +116,10 @@ class VertPosRefinement(nn.Module):
 
 
 class AdditionalFeaturesFC(nn.Module):
-    def __init__(self, dim_in: int, out_dim: int = 51):
+    def __init__(self, dim_in: int, out_dim: int = 51,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.ff1 = MLPBlock(dim_in, out_dim)
+        self.ff1 = MLPBlock(dim_in, out_dim, compute_dtype=compute_dtype)
 
     def forward(self, x):
         return self.ff1(x)
@@ -124,18 +131,20 @@ class SelfAttn(nn.Module):
     None for all of them."""
 
     def __init__(self, dim: int = 131, n_heads: int = 4,
-                 cap: Optional[int] = None):
+                 cap: Optional[int] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         d = dim // n_heads
+        dt = compute_dtype
         self.n_heads = n_heads
         self.d = d
         self.cap = cap
         self.layer_norm = nn.LayerNorm(dim, eps=LN_EPS)
-        self.w_qs = nn.Linear(dim, n_heads * d)
-        self.w_ks = nn.Linear(dim, n_heads * d)
-        self.w_vs = nn.Linear(dim, n_heads * d)
-        self.fc = nn.Linear(n_heads * d, dim)
-        self.ff = MLPResBlock(dim, dim)
+        self.w_qs = Linear(dim, n_heads * d, compute_dtype=dt)
+        self.w_ks = Linear(dim, n_heads * d, compute_dtype=dt)
+        self.w_vs = Linear(dim, n_heads * d, compute_dtype=dt)
+        self.fc = Linear(n_heads * d, dim, compute_dtype=dt)
+        self.ff = MLPResBlock(dim, dim, compute_dtype=dt)
 
     def _capped(self, q, k, v, mask):
         """The first max(128, cap) interacting rows of each sample, in their
@@ -150,7 +159,7 @@ class SelfAttn(nn.Module):
         os_ = torch.stack([blockwise_attention(q[i, idx[i]], k[i, idx[i]],
                                                v[i, idx[i]], ms[i])
                            for i in range(b)])
-        o = torch.zeros_like(q).index_put((rows, idx), os_)
+        o = q.new_zeros(q.shape, dtype=os_.dtype).index_put((rows, idx), os_)
         kept = torch.zeros_like(mask).index_put((rows, idx), ms)
         overflow = (mask.sum() - kept.sum()).to(torch.float32)
         return o, kept, overflow

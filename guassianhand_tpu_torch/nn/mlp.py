@@ -5,6 +5,12 @@ module names so a reference ``state_dict`` loads by key:
 - ``MLPBlock``: ``layer_norm`` -> ``fc1`` -> relu -> ``fc2``;
 - ``MLPResBlock``: x + fc2(relu(fc1(layer_norm(x))));
 - ``ResnetBlockFC``: ``fc_0``, ``fc_1`` and a bias-free ``shortcut``.
+
+``compute_dtype`` on each block is the JAX package's flax ``dtype``: None
+computes in float32; ``torch.bfloat16`` runs the block's layers in bf16
+(``Linear``) while its parameters stay float32, so checkpoints and
+``compat/from_jax.py`` do not depend on it. The LayerNorms of ``MLPBlock``
+and ``MLPResBlock`` take no compute dtype, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,14 +27,54 @@ LN_EPS = 1e-6
 _ACT = {"relu": nn.ReLU, "silu": nn.SiLU}
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` with flax ``Dense(dtype=...)``'s compute type: with a
+    ``compute_dtype`` the input and the float32 weight and bias are cast to
+    it at the call, the product is taken in it (accumulated in float32 and
+    rounded once) and the bias is added in it. None is ``nn.Linear``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = x.to(dt) @ self.weight.to(dt).t()
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with flax ``LayerNorm(dtype=...)``'s compute type:
+    the statistics, the normalisation and the affine map in float32, the
+    result cast to ``compute_dtype`` once. None is ``nn.LayerNorm``."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return super().forward(x.float()).to(self.compute_dtype)
+
+
 class MLP(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, n_neurons: int,
-                 n_hidden_layers: int, activation: str = "relu"):
+                 n_hidden_layers: int, activation: str = "relu",
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        layers = [nn.Linear(dim_in, n_neurons), _ACT[activation]()]
+        dt = compute_dtype
+        layers = [Linear(dim_in, n_neurons, compute_dtype=dt),
+                  _ACT[activation]()]
         for _ in range(n_hidden_layers - 1):
-            layers += [nn.Linear(n_neurons, n_neurons), _ACT[activation]()]
-        layers.append(nn.Linear(n_neurons, dim_out))
+            layers += [Linear(n_neurons, n_neurons, compute_dtype=dt),
+                       _ACT[activation]()]
+        layers.append(Linear(n_neurons, dim_out, compute_dtype=dt))
         self.layers = nn.Sequential(*layers)
 
     def forward(self, x):
@@ -36,22 +82,24 @@ class MLP(nn.Module):
 
 
 class MLPBlock(nn.Module):
-    def __init__(self, dim_in: int, hid_dim: int):
+    def __init__(self, dim_in: int, hid_dim: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layer_norm = nn.LayerNorm(dim_in, eps=LN_EPS)
-        self.fc1 = nn.Linear(dim_in, hid_dim)
-        self.fc2 = nn.Linear(hid_dim, hid_dim)
+        self.fc1 = Linear(dim_in, hid_dim, compute_dtype=compute_dtype)
+        self.fc2 = Linear(hid_dim, hid_dim, compute_dtype=compute_dtype)
 
     def forward(self, x):
         return self.fc2(F.relu(self.fc1(self.layer_norm(x))))
 
 
 class MLPResBlock(nn.Module):
-    def __init__(self, dim: int, hid_dim: int):
+    def __init__(self, dim: int, hid_dim: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layer_norm = nn.LayerNorm(dim, eps=LN_EPS)
-        self.fc1 = nn.Linear(dim, hid_dim)
-        self.fc2 = nn.Linear(hid_dim, dim)
+        self.fc1 = Linear(dim, hid_dim, compute_dtype=compute_dtype)
+        self.fc2 = Linear(hid_dim, dim, compute_dtype=compute_dtype)
 
     def forward(self, x):
         return x + self.fc2(F.relu(self.fc1(self.layer_norm(x))))
@@ -59,13 +107,16 @@ class MLPResBlock(nn.Module):
 
 class ResnetBlockFC(nn.Module):
     def __init__(self, size_in: int, size_out: Optional[int] = None,
-                 size_h: Optional[int] = None):
+                 size_h: Optional[int] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         size_out = size_out or size_in
         size_h = size_h or min(size_in, size_out)
-        self.fc_0 = nn.Linear(size_in, size_h)
-        self.fc_1 = nn.Linear(size_h, size_out)
-        self.shortcut = (nn.Linear(size_in, size_out, bias=False)
+        dt = compute_dtype
+        self.fc_0 = Linear(size_in, size_h, compute_dtype=dt)
+        self.fc_1 = Linear(size_h, size_out, compute_dtype=dt)
+        self.shortcut = (Linear(size_in, size_out, bias=False,
+                                compute_dtype=dt)
                          if size_in != size_out else None)
 
     def forward(self, x):

@@ -3,13 +3,18 @@
 coordinates in [-radius, radius]; per-block features are max-pooled onto a
 plane_size^2 grid and gathered back per point; the last features are
 mean-pooled into the (C, plane_size, plane_size) plane. Empty cells pool
-to 0."""
+to 0. With a ``compute_dtype`` the Dense and ResNet layers and the block
+max-pools run in it (parameters stay float32); the final mean-pool always
+sums in float32, as in the JAX package: a bf16 sum over thousands of points
+a cell would lose most of its mantissa."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
-from guassianhand_tpu_torch.nn.mlp import ResnetBlockFC
+from guassianhand_tpu_torch.nn.mlp import Linear, ResnetBlockFC
 
 
 def coord_index(p_xy: torch.Tensor, plane_size: int,
@@ -35,15 +40,18 @@ def _scatter(x: torch.Tensor, index: torch.Tensor, n_cells: int,
 
 class LocalPoolPointnet(nn.Module):
     def __init__(self, dim_in: int, c_dim: int = 512, hidden_dim: int = 128,
-                 plane_size: int = 32, n_blocks: int = 5, radius: float = 1.0):
+                 plane_size: int = 32, n_blocks: int = 5, radius: float = 1.0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.c_dim = c_dim
         self.plane_size = plane_size
         self.radius = radius
-        self.fc_pos = nn.Linear(dim_in, 2 * hidden_dim)
+        dt = compute_dtype
+        self.fc_pos = Linear(dim_in, 2 * hidden_dim, compute_dtype=dt)
         self.blocks = nn.ModuleList(
-            [ResnetBlockFC(2 * hidden_dim, hidden_dim) for _ in range(n_blocks)])
-        self.fc_c = nn.Linear(hidden_dim, c_dim)
+            [ResnetBlockFC(2 * hidden_dim, hidden_dim, compute_dtype=dt)
+             for _ in range(n_blocks)])
+        self.fc_c = Linear(hidden_dim, c_dim, compute_dtype=dt)
 
     def forward(self, p: torch.Tensor) -> torch.Tensor:
         """p (B, T, D) -> (B, c_dim, plane_size, plane_size)."""
@@ -57,7 +65,7 @@ class LocalPoolPointnet(nn.Module):
             pooled = torch.gather(pooled, 1,
                                   gather_idx.expand(-1, -1, net.shape[-1]))
             net = block(torch.cat([net, pooled], dim=-1))
-        c = self.fc_c(net)
+        c = self.fc_c(net).float()
         plane = _scatter(c, index, n_cells, "mean")            # (B, cells, C)
         return plane.transpose(1, 2).reshape(b, self.c_dim, self.plane_size,
                                              self.plane_size)

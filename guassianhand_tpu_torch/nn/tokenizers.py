@@ -6,14 +6,18 @@
 - ``TriplaneUpsampler``: ConvTranspose k=2 s=2 per plane, C_in -> C_out,
   under the reference name ``upsample``. Its weight is torch's
   (in, out, kh, kw); the JAX kernel is (kh, kw, in, out) with the spatial
-  taps flipped (``compat/from_jax.py`` converts).
+  taps flipped (``compat/from_jax.py`` converts). With a
+  ``compute_dtype`` it runs in that type (input, float32 weight and bias
+  cast at the call, the bias added after the convolution as flax does).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from guassianhand_tpu_torch.nn.mlp import normal_
 
@@ -48,14 +52,23 @@ class TriplaneLearnablePositionalEmbedding(nn.Module):
 
 
 class TriplaneUpsampler(nn.Module):
-    def __init__(self, in_channels: int = 512, out_channels: int = 80):
+    def __init__(self, in_channels: int = 512, out_channels: int = 80,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.out_channels = out_channels
+        self.compute_dtype = compute_dtype
         self.upsample = nn.ConvTranspose2d(in_channels, out_channels,
                                            kernel_size=2, stride=2)
 
     def forward(self, planes: torch.Tensor) -> torch.Tensor:
         """(B, Np, C, S, S) -> (B, Np, out, 2S, 2S)."""
         b, np_, c, s, _ = planes.shape
-        x = self.upsample(planes.reshape(b * np_, c, s, s))
+        x = planes.reshape(b * np_, c, s, s)
+        dt = self.compute_dtype
+        if dt is None:
+            x = self.upsample(x)
+        else:
+            up = self.upsample
+            x = F.conv_transpose2d(x.to(dt), up.weight.to(dt), stride=2)
+            x = x + up.bias.to(dt)[:, None, None]
         return x.reshape(b, np_, self.out_channels, 2 * s, 2 * s)

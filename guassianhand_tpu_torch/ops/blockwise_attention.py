@@ -8,6 +8,15 @@ score matrix of the avatar scene would take about 3.8 GB for 4 heads. With
 ``ops/flash_attention_cuda.py``, CUDA kernels on the card. Either way
 masked positions neither attend nor are attended to, and their output rows
 are 0.
+
+With bf16 q, k, v (the model's bf16 compute dtype) the chunked route is
+the JAX scan path's mixed-precision recipe: float32 scores from the bf16
+operands, the scale applied in float32, the softmax statistics in float32,
+the probabilities rounded to bf16 for the product with V, which
+accumulates in float32, and a float32 output (the flash route's output is
+bf16, as JAX's Pallas kernel's). ``torch.matmul`` of two bf16 tensors would
+round the scores to bf16, so the operands are widened to float32 first:
+a product of two bf16 values is exact in float32.
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     follows ``$GH_FLASH_ATTN``."""
     if use_flash() if flash is None else flash:
         return flash_attention(q, k, v, mask)
+    if q.dtype == torch.bfloat16:
+        return _chunked_bf16(q, k, v, mask, q_chunk)
     n, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     kt = k.permute(1, 2, 0)                                # (H, D, N)
@@ -50,6 +61,30 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scores = scores.masked_fill(~mask[None, None, :], NEG_INF)
         p = torch.softmax(scores, dim=-1)
         out[s:s + q_chunk] = (p @ vh).transpose(0, 1)
+    if mask is not None:
+        out = out * mask[:, None, None].to(out.dtype)
+    return out
+
+
+def _chunked_bf16(q, k, v, mask, q_chunk):
+    """The chunked route for bf16 q, k, v: a float32 (N, H, D) output. The
+    probabilities are rounded to bf16 against their row's maximum over all
+    keys (JAX's scan rounds them against a running maximum over its key
+    blocks); the sum is divided out after the product, as JAX does."""
+    n, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    kt = k.permute(1, 2, 0).float()                        # (H, D, N)
+    vh = v.transpose(0, 1).float()                         # (H, N, D)
+    out = torch.empty((n, h, d), dtype=torch.float32, device=q.device)
+    for s in range(0, n, q_chunk):
+        qc = q[s:s + q_chunk].transpose(0, 1).float()       # (H, qc, D)
+        scores = (qc @ kt) * scale
+        if mask is not None:
+            scores = scores.masked_fill(~mask[None, None, :], NEG_INF)
+        p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        acc = p.to(torch.bfloat16).float() @ vh
+        out[s:s + q_chunk] = (acc / p.sum(dim=-1, keepdim=True).clamp_min(
+            1e-30)).transpose(0, 1)
     if mask is not None:
         out = out * mask[:, None, None].to(out.dtype)
     return out

@@ -13,7 +13,9 @@ and the multi-view render.
   launch for all views.
 
 The interaction attention ``self_attn_layer`` lives here, as in the
-reference module tree; the model calls it before rendering.
+reference module tree; the model calls it before rendering, and it alone
+takes the model's compute dtype: everything the renderer computes itself
+is float32.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ class RendererConfig:
 
 class GSRenderer(nn.Module):
     def __init__(self, cfg: RendererConfig = RendererConfig(),
-                 interaction_cap: Optional[int] = None):
+                 interaction_cap: Optional[int] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         self.mlp_net = MLP(cfg.feature_dim, cfg.hidden_dim, cfg.hidden_dim,
@@ -66,7 +69,8 @@ class GSRenderer(nn.Module):
                               use_rgb=cfg.use_rgb)
         self.gs_valid = VertValid(cfg.feature_dim + 3)
         self.vert_pos_refinement = VertPosRefinement(cfg.feature_dim + 3)
-        self.self_attn_layer = SelfAttn(cfg.feature_dim, cap=interaction_cap)
+        self.self_attn_layer = SelfAttn(cfg.feature_dim, cap=interaction_cap,
+                                        compute_dtype=compute_dtype)
 
     def build_gaussians(self, features: torch.Tensor, points: torch.Tensor,
                         vert_uv: torch.Tensor):

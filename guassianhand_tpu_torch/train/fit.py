@@ -13,7 +13,9 @@
   shade branch) is computed once (``attach_static_features``).
 
 The model runs in eval mode: the JAX fit step applies it with
-``train=False``, so no dropout. Steps run with TF32 off.
+``train=False``, so no dropout. Steps run with TF32 off. Under a bf16
+compute dtype the losses still take float32 renders: the step checks it
+rather than casting.
 """
 from __future__ import annotations
 
@@ -107,6 +109,10 @@ def make_fit_step(model: OneShotAvatarModel, vgg_loss_fn: Optional[Callable],
 
     def loss_fn(batch):
         out = model(batch, height, width)
+        for key in ("comp_rgb", "comp_mask"):
+            if out[key].dtype != torch.float32:
+                raise TypeError(f"the losses take float32 renders, "
+                                f"{key} is {out[key].dtype}")
         total, err = compute_error(
             out["comp_rgb"][:, 0], batch["target_rgb"], out["comp_mask"][:, 0],
             batch["target_mask"], vgg_loss_fn, cfg.weights)

@@ -6,7 +6,11 @@ the target branch detached.
 Weights: a torchvision ``vgg19`` state dict loaded from ``weights_path``
 when one is given; otherwise a fixed-seed random network (``_random_params``,
 the same numbers as the JAX package's). Convolutions are ``F.conv2d`` in
-OIHW layout; on the card the caller turns TF32 off for fp32 parity.
+OIHW layout; on the card the caller turns TF32 off for fp32 parity. With
+``compute_dtype`` (the JAX package's ``VGGLoss(compute_dtype=...)``) the
+convolutions and their bias and ReLU run in that type, the weights stored
+float32 and cast at each call; the ImageNet normalisation and the
+per-slice L1 stay float32.
 """
 from __future__ import annotations
 
@@ -74,9 +78,12 @@ def load_vgg19_params(weights_path: Optional[str] = None):
 class VGGLoss(nn.Module):
     """The perceptual loss; its weights are buffers, never trained."""
 
-    def __init__(self, weights_path: Optional[str] = None):
+    def __init__(self, weights_path: Optional[str] = None,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         params, self.pretrained = load_vgg19_params(weights_path)
+        self.compute_dtype = (getattr(torch, compute_dtype) if compute_dtype
+                              else None)
         for i, (w, b) in enumerate(params):
             self.register_buffer(f"w{i}", torch.from_numpy(w))
             self.register_buffer(f"b{i}", torch.from_numpy(b))
@@ -88,12 +95,19 @@ class VGGLoss(nn.Module):
     def features(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, 3, H, W) in [0, 1] -> the 4 slice activations."""
         h = (x - self.mean) / self.std
+        dt = self.compute_dtype
+        if dt is not None:
+            h = h.to(dt)
         outs = []
         for i, (_, _, pool) in enumerate(_CONV_PLAN):
             if pool:
                 h = F.max_pool2d(h, 2, 2)
-            h = F.relu(F.conv2d(h, getattr(self, f"w{i}"),
-                                getattr(self, f"b{i}"), padding=1))
+            w, b = getattr(self, f"w{i}"), getattr(self, f"b{i}")
+            if dt is None:
+                h = F.relu(F.conv2d(h, w, b, padding=1))
+            else:
+                h = F.relu(F.conv2d(h, w.to(dt), padding=1)
+                           + b.to(dt)[:, None, None])
             if i in _SLICE_AFTER:
                 outs.append(h)
         return outs
@@ -105,5 +119,6 @@ class VGGLoss(nn.Module):
             fy = self.features(y.detach())
         loss = torch.zeros((), device=x.device)
         for wgt, a, b in zip(SLICE_WEIGHTS, fx, fy):
-            loss = loss + wgt * abs_ref(a - b).mean()
+            # float32 whatever the compute dtype
+            loss = loss + wgt * abs_ref(a.float() - b.float()).mean()
         return loss

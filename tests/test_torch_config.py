@@ -1,17 +1,19 @@
 """The port's config loading against the JAX package's: every YAML file in
 ``configs/`` loads into the port, every key a file sets holds the JAX
 ``load_config``'s value for it, unknown keys still raise, and a config
-that asks for bf16 compute or the edit path is never run silently in
-another way (exact comparisons: these are parsed values)."""
+that asks for bf16 compute runs and reports it, and one that asks for the
+edit path is refused (exact comparisons: these are parsed values)."""
 import dataclasses
 import json
 from pathlib import Path
 
 import pytest
+import torch
 
 from guassianhand_tpu import config as jconfig
 from guassianhand_tpu_torch import config as tconfig
 from guassianhand_tpu_torch.cli import fit_one_shot
+from guassianhand_tpu_torch.models.one_shot import OneShotAvatarModel
 from tests.torch_parity import one_torch_thread  # noqa: F401
 
 CONFIGS = sorted(Path(__file__).resolve().parents[1].glob("configs/*.yaml"))
@@ -63,19 +65,25 @@ def test_unknown_keys_raise():
 
 
 def test_bf16_and_edit_are_not_run_silently(tmp_path, capsys):
-    """compute_dtype bfloat16 is reported as computed in float32 (the
-    line the entry points print, and the snapshot's
-    compute_dtype_effective); the fit CLI refuses the edit configs before
-    it builds or writes anything."""
+    """configs/one_shot.yaml builds a model whose feature pipeline computes
+    in bf16 (its parameters float32), and the line the entry points print
+    and the snapshot's compute_dtype_effective say bfloat16; without
+    compute_dtype both say float32. The fit CLI refuses the edit configs
+    before it builds or writes anything."""
     cfg = tconfig.load_config(str(CONFIGS[0].parent / "one_shot.yaml"))
     assert cfg.model.compute_dtype == "bfloat16"
-    line = tconfig.compute_dtype_line(cfg.model)
-    assert "float32" in line and "bfloat16" in line
+    model = OneShotAvatarModel(dataclasses.replace(
+        cfg.model, residual_map_hw=(8, 16)))
+    assert model.backbone.proj_in.compute_dtype == torch.bfloat16
+    assert model.renderer.self_attn_layer.w_qs.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert tconfig.compute_dtype_line(cfg.model).startswith(
+        "compute dtype: bfloat16")
     plain = dataclasses.replace(cfg.model, compute_dtype=None)
     assert tconfig.compute_dtype_line(plain) == "compute dtype: float32"
     snap = json.loads(Path(tconfig.save_config_snapshot(
         cfg, str(tmp_path))).read_text())
-    assert snap["compute_dtype_effective"] == "float32"
+    assert snap["compute_dtype_effective"] == "bfloat16"
     assert snap["model"]["compute_dtype"] == "bfloat16"
     for name in ("one_shot_edit.yaml", "one_shot_avatar_drive.yaml"):
         with pytest.raises(SystemExit):

@@ -6,7 +6,7 @@ scene for K4; L = 15,404, 9,242, 44 and 1 live rows for K5) and times K5
 with CUDA events. ``chip_smoke.py`` runs the full checks; this one takes
 seconds.
 
-    python3 -m tests.torch_kernel_first_check
+    PYTHONPATH=. python3 tests/torch_kernel_first_check.py
 """
 import json
 import time
@@ -14,7 +14,7 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import projection_edge_scene
+from chip_smoke import bf16_ulps, projection_edge_scene
 from guassianhand_tpu_torch.core.camera import Camera
 from guassianhand_tpu_torch.ops import flash_attention_cuda as fa
 from guassianhand_tpu_torch.ops import projection_cuda as pc
@@ -57,13 +57,14 @@ def check_projection(label, xyz, scaling, rotation, camera):
     print(json.dumps(out))
 
 
-def check_attention(n, live_share):
+def check_attention(n, live_share, dtype=torch.float32):
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, dout = (torch.randn(n, 4, 32, generator=g, device="cuda")
                      for _ in range(4))
     live = (torch.rand(n, generator=g, device="cuda") < live_share
             ).nonzero()[:, 0]
-    q, k, v, dout = (t[live].contiguous() for t in (q, k, v, dout))
+    q, k, v, dout = (t[live].to(dtype).contiguous()
+                     for t in (q, k, v, dout))
     out, lse = fa.flash_forward(q, k, v)
     out_p, lse_p = fa.flash_attention_plain(q, k, v)
     delta = fa.attention_delta(out, dout)
@@ -71,12 +72,16 @@ def check_attention(n, live_share):
     dq = fa.flash_backward_dq(q, k, v, dout, lse, delta)
     want = fa.flash_attention_backward_plain(q, k, v, out_p, lse_p, dout)
     torch.cuda.synchronize()
-    row = {"n": n, "L": live.numel(),
-           "out": float((out - out_p).abs().max()),
+    row = {"n": n, "L": live.numel(), "dtype": str(dtype),
+           "out": float((out.float() - out_p.float()).abs().max()),
            "lse": float((lse - lse_p).abs().max())}
-    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-        row[name] = float((a - b).abs().max())
-        row[name + "_scale"] = float(b.abs().max())
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv),
+                          (out_p, *want)):
+        if name != "out":
+            row[name] = float((a.float() - b.float()).abs().max())
+            row[name + "_scale"] = float(b.abs().max())
+        if dtype == torch.bfloat16:
+            row[name + "_ulps"] = float(bf16_ulps(a, b).max())
     if n > 1000:
         row["fwd_ms"] = event_ms(lambda: fa.flash_forward(q, k, v))
         row["dkv_ms"] = event_ms(lambda: fa.flash_backward_dkv(
@@ -111,8 +116,10 @@ def main():
     xyz, scaling, rotation, w2c, K, h, w = projection_edge_scene()
     check_projection("edge", xyz, scaling, rotation,
                      Camera.from_w2c(w2c, K, h, w, device="cuda"))
-    for n, live_share in ((15404, 1.0), (15404, 0.6), (77, 0.5), (1, 1.0)):
-        check_attention(n, live_share)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, live_share in ((15404, 1.0), (15404, 0.6), (77, 0.5),
+                              (1, 1.0)):
+            check_attention(n, live_share, dtype)
     print(torch.cuda.get_device_name(0))
 
 
