@@ -5,10 +5,11 @@
 
 Phases, each reported on its own line:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: the five CUDA sources (composite_fwd.cu, composite_bwd.cu,
-     segment_reduce.cu, projection.cu, flash_attention.cu) compiled from
-     csrc/ with nvcc for sm_90a, one nvcc each, all at once, with ptxas'
-     registers, shared memory and spills;
+  2. build: the six CUDA sources (composite_fwd.cu, composite_bwd.cu,
+     segment_reduce.cu, projection.cu, flash_attention.cu,
+     flash_attention_bf16.cu) compiled from csrc/ with nvcc for sm_90a, one
+     nvcc each, all at once, with ptxas' registers, shared memory and
+     spills;
   3. kernel vs plain: the forward kernel held against its plain PyTorch
      twin at the bench scene (49,152 random Gaussians, 512^2), at edge
      cases the main path does not reach (odd image sizes, stacked views,
@@ -51,11 +52,12 @@ Phases, each reported on its own line:
      to the bit; beside them the default chunked route and torch's
      scaled_dot_product_attention, and each kernel's bound on the tensor
      cores in split TF32 beside its bound as fp32 FMAs; then the bf16
-     kernels against their bf16 twins at the same edge cases: out, dq, dk
-     and dv within 4 bf16 ulps of max(|ref|, 1/16 of the array's largest)
-     and, in norm, no further from the float32 function than 1.25 times
-     the twins, lse within the forward tolerance, two calls equal to the
-     bit;
+     kernels against their bf16 twins at the same edge cases and at 127,
+     128, 129, 255, 256 and 257 live rows of 300 (the edges of their
+     128-row CTAs and 128-key tiles): out, dq, dk and dv within 4 bf16 ulps
+     of max(|ref|, 1/16 of the array's largest) and, in norm, no further
+     from the float32 function than 1.25 times the twins, lse within the
+     forward tolerance, two calls equal to the bit;
   7. raster fwd+bwd: bench.py::main's step (project, bin, composite forward
      and backward at the bench scene), ms per step and rays/s, and the
      composite wrappers' host time a call;
@@ -76,8 +78,10 @@ Phases, each reported on its own line:
      4 views, which launch the bf16 flash attention and not the float32
      one, logged beside the float32 model's; the bf16 kernels against
      their twins at its fit's own q, k, v (L = 14,914), timed beside SDPA
-     in bf16 and their bounds (bf16 tensor cores, exp on the SFUs at the
-     card's maximum SM clock, bytes); and scripts/bf16_psnr_gate.py's gate:
+     in bf16 (all rows with the key mask, and the gathered live rows with
+     no mask on its flash backend) and their bounds (bf16 tensor cores,
+     exp on the SFUs at the card's maximum SM clock, bytes); and
+     scripts/bf16_psnr_gate.py's gate:
      50 fit steps from one init in fp32, in bf16 and in the flagship's
      bf16, each bf16 fit's rendered PSNR within 0.1 dB of the fp32 fit's;
  10. reference: a small model rendered, and fitted for 2 steps, on the card
@@ -91,8 +95,9 @@ builds its own kernels, and its composite kernels and raster step are timed
 beside this tree's on the same inputs, in turns, and so are its three flash
 attention kernels at the fit's q, k, v, its projection at the fit and at a
 request's 4 views (its one launch a view against this tree's one launch),
-and its sorted-segment sum at the bench and the fit, alone and with the
-gathers into Gaussian order that its backward ran before it.
+its sorted-segment sum at the bench and the fit, alone and with the
+gathers into Gaussian order that its backward ran before it, and its three
+bf16 flash attention kernels at the flagship fit's q, k, v.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Any failure raises: exit code != 0
@@ -234,7 +239,8 @@ def phase_build() -> None:
                                             segreduce_cuda)
     from guassianhand_tpu_torch.ops.cuda_build import build_all
     libs = [rasterize_cuda.FORWARD_LIB, rasterize_cuda.BACKWARD_LIB,
-            segreduce_cuda.LIB, projection_cuda.LIB, flash_attention_cuda.LIB]
+            segreduce_cuda.LIB, projection_cuda.LIB, flash_attention_cuda.LIB,
+            flash_attention_cuda.LIB_BF16]
     t0 = time.perf_counter()
     texts = build_all(libs)
     seconds = time.perf_counter() - t0
@@ -515,9 +521,12 @@ class Parent:
         if not Path(self.rc.__file__).resolve().is_relative_to(root):
             raise RuntimeError(f"--parent {root} has no {self.PKG}")
         t0 = time.perf_counter()
-        mods["ops.cuda_build"].build_all([self.rc.FORWARD_LIB,
-                                          self.rc.BACKWARD_LIB, self.fa.LIB,
-                                          self.sr.LIB, self.pc.LIB])
+        # its bf16 attention has a library of its own where it is not
+        # flash_attention.cu
+        mods["ops.cuda_build"].build_all([
+            self.rc.FORWARD_LIB, self.rc.BACKWARD_LIB, self.fa.LIB,
+            *([self.fa.LIB_BF16] if hasattr(self.fa, "LIB_BF16") else []),
+            self.sr.LIB, self.pc.LIB])
         log("build", source=str(root / self.PKG / "csrc"), parent=True,
             seconds_all=time.perf_counter() - t0)
 
@@ -1397,7 +1406,10 @@ def phase_attention_edges(dtype=torch.float32) -> None:
     tile (15, 16, 17, 63, 64, 65, 129 of 150); and scores up to about 30
     in magnitude, where exp's range and the split's lo term matter. With
     ``dtype`` bf16 the bf16 kernels (``check_attention_bf16``) on the same
-    cases."""
+    cases, and then live counts on the edges of their 128-row CTAs and
+    128-key forward tiles, which their 64-row backward tiles halve (127,
+    128, 129, 255, 256, 257 of 300), drawn after the shared cases so that
+    those keep their inputs."""
     rng = np.random.RandomState(4)
 
     def qkv(n, heads=4, scale=1.0):
@@ -1436,6 +1448,13 @@ def phase_attention_edges(dtype=torch.float32) -> None:
         raise AssertionError(f"the large-score case reaches |score| {top}")
     log("attention_large_scores", dtype=str(dtype), max_abs_score=top)
     check(f"large_scores_{n}", q, k, v, None)
+    if dtype == torch.bfloat16:
+        n = 300
+        for live in (127, 128, 129, 255, 256, 257):
+            mask = np.zeros(n, bool)
+            mask[rng.choice(n, live, replace=False)] = True
+            check(f"live_{live}_of_{n}", *qkv(n),
+                  torch.as_tensor(mask, device="cuda"))
 
 
 def bf16_attention_bounds(n_live: int, heads: int, d: int,
@@ -1466,7 +1485,8 @@ def bf16_attention_bounds(n_live: int, heads: int, d: int,
 
 
 def check_attention_bf16(label: str, q, k, v, mask, timed: bool = False,
-                         sm_clock_mhz: float = None, reps: int = 5) -> dict:
+                         sm_clock_mhz: float = None, reps: int = 5,
+                         parent=None) -> dict:
     """K5's bf16 forward, dkv and dq kernels against their bf16 twins on
     the card, over the live rows of ``mask`` (N,) (all if None), q, k, v
     bf16; raises on disagreement. out, dq, dk and dv within BF16_ULPS bf16
@@ -1478,9 +1498,13 @@ def check_attention_bf16(label: str, q, k, v, mask, timed: bool = False,
     ``flash_attention`` masked rows exactly 0 in the output and in every
     gradient. Beside them, each one's relative error (in norm) against the
     float32 function of the same bf16 inputs (the float32 twins), the
-    kernel's and the twin's. ``timed``: the three kernels, the twins, and
-    torch's scaled_dot_product_attention on the same bf16 inputs with the
-    key mask, and the bounds (``bf16_attention_bounds``)."""
+    kernel's and the twin's. ``timed``: the three kernels (with a Parent
+    ``parent``, its three bf16 kernels on the same inputs, in turns with
+    these), the twins, and torch's scaled_dot_product_attention on the same
+    bf16 inputs two ways: over all N rows with the key mask, and on the
+    gathered live rows with no mask under its flash backend (the same
+    function as the kernels', the fair yardstick; timed only, never called
+    by the port), and the bounds (``bf16_attention_bounds``)."""
     import torch.nn.functional as F
 
     from guassianhand_tpu_torch.ops import flash_attention_cuda as fa
@@ -1562,10 +1586,32 @@ def check_attention_bf16(label: str, q, k, v, mask, timed: bool = False,
         sdpa_out = sdpa_forward()[0].transpose(0, 1)[live]
         row["sdpa_vs_kernel_max_ulps"] = float(
             bf16_ulps(out, sdpa_out.detach()).max())
+        # the gathered live rows, no mask, flash backend
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        gathered = [t.transpose(0, 1)[None].contiguous().requires_grad_()
+                    for t in (ql, kl, vl)]
+        do_g = dol.transpose(0, 1)[None].contiguous()
+
+        def sdpa_gathered():
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return F.scaled_dot_product_attention(*gathered)
+
+        def sdpa_gathered_fwd_bwd():
+            torch.autograd.grad(sdpa_gathered(), gathered, do_g)
+
+        row["sdpa_gathered_vs_kernel_max_ulps"] = float(bf16_ulps(
+            out, sdpa_gathered()[0].transpose(0, 1).detach()).max())
         args = (ql, kl, vl, dol, lse, delta)
-        row["fwd_ms"] = time_cuda(lambda: fa.flash_forward(*args[:3]), reps)
-        row["dkv_ms"] = time_cuda(lambda: fa.flash_backward_dkv(*args), reps)
-        row["dq_ms"] = time_cuda(lambda: fa.flash_backward_dq(*args), reps)
+        for key, name, n_args in (("fwd", "flash_forward", 3),
+                                  ("dkv", "flash_backward_dkv", 6),
+                                  ("dq", "flash_backward_dq", 6)):
+            mine = getattr(fa, name)
+            theirs = parent and getattr(parent.fa, name)
+            turns = []
+            row[f"{key}_ms"], row[f"{key}_parent_ms"] = time_against_parent(
+                lambda: mine(*args[:n_args]),
+                theirs and (lambda: theirs(*args[:n_args])), reps, turns)
+            row[f"{key}_turns_ms"] = turns
         row["fwd_plain_ms"] = time_cuda(
             lambda: fa.flash_attention_plain(ql, kl, vl), reps=1, warmup=1)
         row["bwd_plain_ms"] = time_cuda(
@@ -1573,6 +1619,9 @@ def check_attention_bf16(label: str, q, k, v, mask, timed: bool = False,
                 ql, kl, vl, out_p, lse_p, dol), reps=1, warmup=1)
         row["sdpa_fwd_ms"] = time_cuda(sdpa_forward, reps)
         row["sdpa_fwd_bwd_ms"] = time_cuda(sdpa_fwd_bwd, reps)
+        row["sdpa_gathered_fwd_ms"] = time_cuda(sdpa_gathered, reps)
+        row["sdpa_gathered_fwd_bwd_ms"] = time_cuda(sdpa_gathered_fwd_bwd,
+                                                    reps)
         row["bounds"] = bf16_attention_bounds(L, h, d, sm_clock_mhz)
     log("attention_bf16_vs_plain", **row)
     bad = {k: v for k, v in over.items() if v}
@@ -2346,7 +2395,7 @@ def main(argv=None) -> int:
     del default_fit, kernel_fit, gs, request
     attn16 = check_attention_bf16(
         "fit_256_bf16", *flagship["fit"]["attention"], timed=True,
-        sm_clock_mhz=info["sm_clock_max_mhz"])
+        sm_clock_mhz=info["sm_clock_max_mhz"], parent=parent)
     bf16_launches = flagship["fit"]["launches"]
     flagship_serve = flagship["serve_launches"]
     del flagship
@@ -2418,6 +2467,7 @@ def main(argv=None) -> int:
         "parent_ms_fit": fit_grad["k2_parent_ms"],
         "parent_ms_avatar": avatar_grad["k2_parent_ms"],
         "bound_ms_bench": bench_grad["k2_bound_ms"],
+        "bound_ms_avatar": avatar_grad["k2_bound_ms"],
         "bit_reproducible": fit_grad["k2_bit_reproducible"],
         "gradient_max_abs_err_fit": grad_err(fit_grad, "gradients"),
     }, {
@@ -2519,13 +2569,13 @@ def main(argv=None) -> int:
     }]
     for name, key, err, plain, library in (
             ("flash_forward", "fwd", ("out",), "fwd_plain_ms",
-             "sdpa_fwd_ms"),
+             "sdpa_gathered_fwd_ms"),
             ("flash_backward_dkv", "dkv", ("dk", "dv"), "bwd_plain_ms", None),
             ("flash_backward_dq", "dq", ("dq",), "bwd_plain_ms", None)):
         part = {"fwd": "forward"}.get(key, key)
         kernels.append({
             "name": f"{name}_bf16", "route": "cuda",
-            "source": "guassianhand_tpu_torch/csrc/flash_attention.cu",
+            "source": "guassianhand_tpu_torch/csrc/flash_attention_bf16.cu",
             "replaces": next(k["replaces"] for k in kernels
                              if k["name"] == name) + ", bf16 inputs",
             "launches": bf16_launches[f"{name}_bf16"],
@@ -2539,7 +2589,11 @@ def main(argv=None) -> int:
             "bound_by": attn16["bounds"][part]["bound_by"],
             "bound_limited_by": attn16["bounds"][part]["limited_by"],
             "library_ms": attn16[library] if library else None,
-            "sdpa_fwd_bwd_ms": attn16["sdpa_fwd_bwd_ms"],
+            "parent_ms": attn16[f"{key}_parent_ms"],
+            "turns_ms": attn16[f"{key}_turns_ms"],
+            "sdpa_masked_fwd_ms": attn16["sdpa_fwd_ms"],
+            "sdpa_masked_fwd_bwd_ms": attn16["sdpa_fwd_bwd_ms"],
+            "sdpa_gathered_fwd_bwd_ms": attn16["sdpa_gathered_fwd_bwd_ms"],
             "live_rows": attn16["live"]})
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel timing failed")

@@ -86,42 +86,8 @@
 // but tf32 wgmma reads B only K-major from shared memory, so P.V, dS^T.Q,
 // P^T.dout and dS.K would each need a transposed copy of their tile.
 //
-// The bf16 instance (flash_fwd_bf16_kernel, flash_dkv_bf16_kernel,
-// flash_dq_bf16_kernel), for the bf16 q, k, v that the model's bf16
-// compute dtype gives (configs/one_shot.yaml), computes what JAX's Pallas
-// flash attention computes on bf16 inputs, at its rounding points:
-//   forward: S = q k^T on bf16 MMAs with fp32 accumulation; the scale
-//     multiplies the fp32 S (q is not scaled in bf16: that rounding would
-//     change the function); an online softmax in fp32 over 64-key tiles,
-//     whose P = exp(S - m), m the running maximum with this tile, is
-//     rounded to bf16 for P.V (fp32 accumulation); out = acc / l rounded to
-//     bf16 once; lse = m + log(l) in fp32;
-//   backward, with delta = rowsum(f32(out) * f32(dout)) from torch:
-//     P = exp(S scale - lse) and dP = dout v^T in fp32, dS = (dP - delta) P
-//     scale in fp32 (the scale before the cast); dv += bf16(P)^T dout,
-//     dk += bf16(dS)^T q, dq += bf16(dS) k, fp32 sums, each rounded to bf16
-//     once.
-// Its twins (ops/flash_attention_cuda.py, given bf16 tensors) round at the
-// same points; JAX's own kernel rounds its P against the running maximum
-// of 128-key blocks.
-// What bounds it: one bf16 MMA a product, so 4 D flops a score forward,
-// 8 D dkv and 6 D dq at 989 TFLOP/s dense: 0.115, 0.230 and 0.173 ms at
-// the fit (889.7 M scores); beside them one expf a score on the SFUs
-// (16 a clock an SM): about 0.21 ms at 1.98 GHz, above the forward's and
-// dq's products. Its design is the float32 kernels', one MMA a product:
-// 4 warps of 16 rows a CTA, 64-row tiles of the streamed operands
-// double-buffered with cp.async in rows of 80 bytes (32 values and 16
-// bytes of padding, so that ldmatrix reads 8 rows on 32 distinct banks).
-// m16n8k16's accumulator of two adjacent 8-column blocks, packed to
-// bf16x2, is the A fragment of the next product as it stands, so P and dS
-// stay in registers in natural column order. As in the float32 kernels, each
-// tile's products go into a fresh accumulator that is then added to the
-// running one in float32: a chain of MMAs through all L rows would round
-// its sum far more coarsely. The B operands read along their
-// rows (K in S = q k^T, V in dP, Q and dout in dkv's S^T and dP^T) come
-// from ldmatrix; those read across them (V in P.V, dout and Q in dkv's
-// products, K in dq's) from ldmatrix.trans. Each output element is
-// summed by one thread in a fixed order: two calls give the same bits.
+// The bf16 kernels, for the bf16 q, k, v that the model's bf16 compute
+// dtype gives, are csrc/flash_attention_bf16.cu (wgmma and TMA).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -644,440 +610,9 @@ dim3 grid_for(int n, int heads) {
   return dim3((n + kRows - 1) / kRows, heads);
 }
 
-// ---------------------------------------------------------------- bf16
-
-// bf16 values are carried as their 16 bits (uint16_t), two to a 32-bit
-// register as mma and ldmatrix take them, the lower column in the low half.
-constexpr int kRowH = kD + 8;           // a staged row: 32 values, 8 padding
-constexpr int kBufH = kTile * kRowH;    // halves a staged tensor
-constexpr int kChunksH = kTile * kD / 8;  // 16-byte copies a tensor
-static_assert(kChunksH % kThreads == 0, "copies split evenly");
-constexpr int kCopiesH = kChunksH / kThreads;
-
-// bf16x2 of (lo, hi), each rounded to nearest even: lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the
-// row addresses of matrix i; a lane gets row g, columns 2t, 2t + 1 of
-// each (with .trans: rows 2t, 2t + 1 of column g).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const uint16_t* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-__device__ __forceinline__ const uint16_t* row_ptr_h(const uint16_t* base,
-                                                     int row, int h,
-                                                     int heads) {
-  return base + (static_cast<size_t>(row) * heads + h) * kD;
-}
-
-// A warp's 16 rows [r, r + 16) of head h as the A fragments of a product
-// over d: k-step s is d = 16s..16s+15, a0 row g d 16s + 2t, a1 row g + 8,
-// a2 and a3 eight columns on. Rows past n are 0.
-__device__ __forceinline__ void load_a_bf16(const uint16_t* base, int r,
-                                            int n, int h, int heads,
-                                            uint32_t (&f)[2][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r + g + 8 * half;
-    const uint32_t* src =
-        reinterpret_cast<const uint32_t*>(row_ptr_h(base, row, h, heads));
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      f[s][half] = row < n ? src[8 * s + t] : 0u;
-      f[s][half + 2] = row < n ? src[8 * s + 4 + t] : 0u;
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async16_h(uint16_t* smem,
-                                             const uint16_t* gmem,
-                                             bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// This thread's 16-byte copies of rows [r0, r0 + kTile) of head h into a
-// staged tile; rows past n are zero-filled.
-__device__ __forceinline__ void stage_h(uint16_t* buf, const uint16_t* base,
-                                        int r0, int n, int h, int heads) {
-#pragma unroll
-  for (int m = 0; m < kCopiesH; ++m) {
-    const int c = threadIdx.x + kThreads * m;
-    const int row = c >> 2, col = 8 * (c & 3);
-    const bool valid = r0 + row < n;
-    cp_async16_h(buf + row * kRowH + col,
-                 valid ? row_ptr_h(base, r0 + row, h, heads) + col : base,
-                 valid);
-  }
-}
-
-// s = a . (tile rows 8b..8b+7)^T over d = 0..31: the rows' values are B
-// along their rows, 4 matrices of 8 d each, 2 k-steps.
-__device__ __forceinline__ void rows_product(float (&s)[4],
-                                             const uint32_t (&a)[2][4],
-                                             const uint16_t* buf, int b) {
-  const int lane = threadIdx.x & 31;
-  uint32_t r[4];
-  ldsm_x4(r, buf + (8 * b + (lane & 7)) * kRowH + 8 * (lane >> 3));
-#pragma unroll
-  for (int c = 0; c < 4; ++c) s[c] = 0.0f;
-  mma_bf16(s, a[0], r[0], r[1]);
-  mma_bf16(s, a[1], r[2], r[3]);
-}
-
-// The accumulators of blocks 2kk and 2kk + 1 (16 columns), rounded to
-// bf16, as the A fragment of a product over those columns.
-__device__ __forceinline__ void acc_as_a_bf16(const float (&x0)[4],
-                                              const float (&x1)[4],
-                                              uint32_t (&a)[4]) {
-  a[0] = pack_bf16(x0[0], x0[1]);
-  a[1] = pack_bf16(x0[2], x0[3]);
-  a[2] = pack_bf16(x1[0], x1[1]);
-  a[3] = pack_bf16(x1[2], x1[3]);
-}
-
-// d[j] += a . (tile rows 16kk..16kk+15) into the 4 n-blocks of d: the
-// rows are the k dimension, read across (ldmatrix.trans), two n-blocks a
-// load.
-__device__ __forceinline__ void product_into_d(float (&d)[4][4],
-                                               const uint32_t (&a)[4],
-                                               const uint16_t* buf, int kk) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3;
-  const uint16_t* p =
-      buf + (16 * kk + 8 * (mi & 1) + (lane & 7)) * kRowH + 8 * (mi >> 1);
-#pragma unroll
-  for (int j = 0; j < 4; j += 2) {
-    uint32_t r[4];
-    ldsm_x4_trans(r, p + 8 * j);
-    mma_bf16(d[j], a, r[0], r[1]);
-    mma_bf16(d[j + 1], a, r[2], r[3]);
-  }
-}
-
-// Rows r + g and r + g + 8 of an output, each accumulator divided by its
-// row's divisor and rounded to bf16: block j, c0 and c1 are d = 8j + 2t
-// and 8j + 2t + 1.
-__device__ __forceinline__ void store_bf16(uint16_t* base, int r, int n,
-                                           int h, int heads,
-                                           const float (&d)[4][4], float div0,
-                                           float div1) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r + g + 8 * half;
-    if (row >= n) continue;
-    const float div = half ? div1 : div0;
-    const int c = 2 * half;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(
-        base + (static_cast<size_t>(row) * heads + h) * kD);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dst[4 * j + t] = pack_bf16(d[j][c] / div, d[j][c + 1] / div);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
-                      const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v, int n, int heads,
-                      float scale, uint16_t* __restrict__ out,
-                      float* __restrict__ lse) {
-  extern __shared__ __align__(16) uint16_t smem_h[];  // [stage][K, V][kBufH]
-  const int h = blockIdx.y;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r = blockIdx.x * kRows + (threadIdx.x >> 5) * 16;
-  uint32_t qa[2][4];
-  load_a_bf16(q, r, n, h, heads, qa);
-  float acc[4][4];
-  zero(acc);
-  float m0 = -INFINITY, m1 = -INFINITY;  // rows r + g, r + g + 8
-  float l0 = 0.0f, l1 = 0.0f;            // this thread's columns' sums
-
-  const int tiles = (n + kTile - 1) / kTile;
-  stage_h(smem_h, k, 0, n, h, heads);
-  stage_h(smem_h + kBufH, v, 0, n, h, heads);
-  cp_async_commit();
-  for (int i = 0; i < tiles; ++i) {
-    const uint16_t* ks = smem_h + (i & 1) * 2 * kBufH;
-    const uint16_t* vs = ks + kBufH;
-    cp_async_wait_all();
-    // this tile visible to all; every warp is done with the other stage
-    __syncthreads();
-    if (i + 1 < tiles) {
-      uint16_t* next = smem_h + ((i + 1) & 1) * 2 * kBufH;
-      stage_h(next, k, (i + 1) * kTile, n, h, heads);
-      stage_h(next + kBufH, v, (i + 1) * kTile, n, h, heads);
-      cp_async_commit();
-    }
-    const int k0 = i * kTile;
-    float s[kBlocks][4];
-#pragma unroll
-    for (int b = 0; b < kBlocks; ++b) {
-      rows_product(s[b], qa, ks, b);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[b][c] = __fmul_rn(s[b][c], scale);
-    }
-    if (k0 + kTile > n) {  // the last tile: keys past n score -inf
-#pragma unroll
-      for (int b = 0; b < kBlocks; ++b)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (k0 + 8 * b + 2 * t + (c & 1) >= n) s[b][c] = -INFINITY;
-    }
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int b = 0; b < kBlocks; ++b) {
-      mx0 = fmaxf(mx0, fmaxf(s[b][0], s[b][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[b][2], s[b][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    float lp0 = 0.0f, lp1 = 0.0f;
-#pragma unroll
-    for (int b = 0; b < kBlocks; ++b) {
-      s[b][0] = expf(s[b][0] - mx0);
-      s[b][1] = expf(s[b][1] - mx0);
-      s[b][2] = expf(s[b][2] - mx1);
-      s[b][3] = expf(s[b][3] - mx1);
-      lp0 += s[b][0] + s[b][1];
-      lp1 += s[b][2] + s[b][3];
-    }
-    float part[4][4];
-    zero(part);
-#pragma unroll
-    for (int kk = 0; kk < kBlocks / 2; ++kk) {
-      uint32_t pa[4];
-      acc_as_a_bf16(s[2 * kk], s[2 * kk + 1], pa);
-      product_into_d(part, pa, vs, kk);
-    }
-    const float corr0 = expf(m0 - mx0), corr1 = expf(m1 - mx1);  // 0 first
-    l0 = fmaf(l0, corr0, lp0);
-    l1 = fmaf(l1, corr1, lp1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[j][0] = fmaf(acc[j][0], corr0, part[j][0]);
-      acc[j][1] = fmaf(acc[j][1], corr0, part[j][1]);
-      acc[j][2] = fmaf(acc[j][2], corr1, part[j][2]);
-      acc[j][3] = fmaf(acc[j][3], corr1, part[j][3]);
-    }
-    m0 = mx0;
-    m1 = mx1;
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  store_bf16(out, r, n, h, heads, acc, l0, l1);
-  if (t == 0) {
-    float* lse_h = lse + static_cast<size_t>(h) * n;
-    if (r + g < n) lse_h[r + g] = m0 + logf(l0);
-    if (r + g + 8 < n) lse_h[r + g + 8] = m1 + logf(l1);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_bf16_kernel(const uint16_t* __restrict__ q,
-                      const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v,
-                      const uint16_t* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, int n, int heads,
-                      float scale, uint16_t* __restrict__ dk,
-                      uint16_t* __restrict__ dv) {
-  // [stage][Q, dout][kBufH] halves, then [stage][lse, delta][kTile] floats
-  extern __shared__ __align__(16) uint16_t smem_h[];
-  float* rows_lse = reinterpret_cast<float*>(smem_h + 4 * kBufH);
-  const int h = blockIdx.y;
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  const int r = blockIdx.x * kRows + (threadIdx.x >> 5) * 16;
-  uint32_t ka[2][4], va[2][4];
-  load_a_bf16(k, r, n, h, heads, ka);
-  load_a_bf16(v, r, n, h, heads, va);
-  float dk_acc[4][4], dv_acc[4][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  const float* lse_h = lse + static_cast<size_t>(h) * n;
-  const float* delta_h = delta + static_cast<size_t>(h) * n;
-
-  auto stage_all = [&](int i) {
-    uint16_t* buf = smem_h + (i & 1) * 2 * kBufH;
-    const int q0 = i * kTile;
-    stage_h(buf, q, q0, n, h, heads);
-    stage_h(buf + kBufH, dout, q0, n, h, heads);
-    // threads 0..63 copy lse, 64..127 delta
-    const int j = threadIdx.x & (kTile - 1);
-    const bool is_lse = threadIdx.x < kTile;
-    const bool valid = q0 + j < n;
-    cp_async4(rows_lse + (i & 1) * 2 * kTile + (is_lse ? 0 : kTile) + j,
-              (is_lse ? lse_h : delta_h) + (valid ? q0 + j : 0), valid);
-    cp_async_commit();
-  };
-
-  const int tiles = (n + kTile - 1) / kTile;
-  stage_all(0);
-  for (int i = 0; i < tiles; ++i) {
-    const uint16_t* qs = smem_h + (i & 1) * 2 * kBufH;
-    const uint16_t* dos = qs + kBufH;
-    const float* l_s = rows_lse + (i & 1) * 2 * kTile;
-    const float* d_s = l_s + kTile;
-    cp_async_wait_all();
-    __syncthreads();
-    if (i + 1 < tiles) stage_all(i + 1);
-    const int q0 = i * kTile;
-    const bool tail = q0 + kTile > n;  // queries past n: P = 0
-    float pdk[4][4], pdv[4][4];
-    zero(pdk);
-    zero(pdv);
-#pragma unroll
-    for (int kk = 0; kk < kBlocks / 2; ++kk) {
-      float p[2][4], dsv[2][4];
-#pragma unroll
-      for (int bb = 0; bb < 2; ++bb) {
-        const int b = 2 * kk + bb;
-        float st[4], dpt[4];
-        rows_product(st, ka, qs, b);    // S^T: rows keys, columns queries
-        rows_product(dpt, va, dos, b);  // dP^T
-        // column c & 1 of the block: query 2t or 2t + 1
-        const float2 lse2 =
-            *reinterpret_cast<const float2*>(l_s + 8 * b + 2 * t);
-        const float2 del2 =
-            *reinterpret_cast<const float2*>(d_s + 8 * b + 2 * t);
-        const int qi = q0 + 8 * b + 2 * t;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const bool odd = c & 1;
-          float pc = expf(__fmul_rn(st[c], scale) - (odd ? lse2.y : lse2.x));
-          if (tail && qi + odd >= n) pc = 0.0f;
-          p[bb][c] = pc;
-          dsv[bb][c] = (dpt[c] - (odd ? del2.y : del2.x)) * pc * scale;
-        }
-      }
-      uint32_t pa[4], dsa[4];
-      acc_as_a_bf16(p[0], p[1], pa);
-      acc_as_a_bf16(dsv[0], dsv[1], dsa);
-      product_into_d(pdv, pa, dos, kk);
-      product_into_d(pdk, dsa, qs, kk);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        dk_acc[j][c] += pdk[j][c];
-        dv_acc[j][c] += pdv[j][c];
-      }
-  }
-  store_bf16(dk, r, n, h, heads, dk_acc, 1.0f, 1.0f);
-  store_bf16(dv, r, n, h, heads, dv_acc, 1.0f, 1.0f);
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_dq_bf16_kernel(const uint16_t* __restrict__ q,
-                     const uint16_t* __restrict__ k,
-                     const uint16_t* __restrict__ v,
-                     const uint16_t* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, int n, int heads,
-                     float scale, uint16_t* __restrict__ dq) {
-  extern __shared__ __align__(16) uint16_t smem_h[];  // [stage][K, V][kBufH]
-  const int h = blockIdx.y;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r = blockIdx.x * kRows + (threadIdx.x >> 5) * 16;
-  uint32_t qa[2][4], da[2][4];
-  load_a_bf16(q, r, n, h, heads, qa);
-  load_a_bf16(dout, r, n, h, heads, da);
-  const float* lse_h = lse + static_cast<size_t>(h) * n;
-  const float* delta_h = delta + static_cast<size_t>(h) * n;
-  const float lse0 = r + g < n ? lse_h[r + g] : 0.0f;
-  const float lse1 = r + g + 8 < n ? lse_h[r + g + 8] : 0.0f;
-  const float del0 = r + g < n ? delta_h[r + g] : 0.0f;
-  const float del1 = r + g + 8 < n ? delta_h[r + g + 8] : 0.0f;
-  float acc[4][4];
-  zero(acc);
-
-  const int tiles = (n + kTile - 1) / kTile;
-  stage_h(smem_h, k, 0, n, h, heads);
-  stage_h(smem_h + kBufH, v, 0, n, h, heads);
-  cp_async_commit();
-  for (int i = 0; i < tiles; ++i) {
-    const uint16_t* ks = smem_h + (i & 1) * 2 * kBufH;
-    const uint16_t* vs = ks + kBufH;
-    cp_async_wait_all();
-    __syncthreads();
-    if (i + 1 < tiles) {
-      uint16_t* next = smem_h + ((i + 1) & 1) * 2 * kBufH;
-      stage_h(next, k, (i + 1) * kTile, n, h, heads);
-      stage_h(next + kBufH, v, (i + 1) * kTile, n, h, heads);
-      cp_async_commit();
-    }
-    const int k0 = i * kTile;
-    const bool tail = k0 + kTile > n;  // keys past n: P = 0
-    float part[4][4];
-    zero(part);
-#pragma unroll
-    for (int kk = 0; kk < kBlocks / 2; ++kk) {
-      float dsv[2][4];
-#pragma unroll
-      for (int bb = 0; bb < 2; ++bb) {
-        const int b = 2 * kk + bb;
-        float s[4], dp[4];
-        rows_product(s, qa, ks, b);
-        rows_product(dp, da, vs, b);
-        const int key = k0 + 8 * b + 2 * t;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const bool second = c >= 2;
-          float p = expf(__fmul_rn(s[c], scale) - (second ? lse1 : lse0));
-          if (tail && key + (c & 1) >= n) p = 0.0f;
-          dsv[bb][c] = (dp[c] - (second ? del1 : del0)) * p * scale;
-        }
-      }
-      uint32_t dsa[4];
-      acc_as_a_bf16(dsv[0], dsv[1], dsa);
-      product_into_d(part, dsa, ks, kk);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[j][c] += part[j][c];
-  }
-  store_bf16(dq, r, n, h, heads, acc, 1.0f, 1.0f);
-}
-
-constexpr int kSmemKVH = 2 * 2 * kBufH * 2;                // bytes
-constexpr int kSmemDkvH = kSmemKVH + 2 * 2 * kTile * 4;    // + lse, delta
-
 }  // namespace
 
-// All six launch on `stream` (a cudaStream_t) and do not synchronise.
+// All three launch on `stream` (a cudaStream_t) and do not synchronise.
 // q, k, v, out, dout, dq, dk, dv are contiguous (n, heads, 32) float32;
 // lse and delta (heads, n). Each returns cudaGetLastError() as an int, 0 on
 // success.
@@ -1134,55 +669,6 @@ extern "C" int gh_flash_backward_dq(const void* q, const void* k,
         static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta), n,
         heads, scale, static_cast<float*>(dq));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The bf16 kernels: q, k, v, out, dout, dq, dk, dv contiguous
-// (n, heads, 32) bf16 (their 16 bits); lse and delta (heads, n) float32.
-extern "C" int gh_flash_forward_bf16(const void* q, const void* k,
-                                     const void* v, int n, int heads,
-                                     float scale, void* out, void* lse,
-                                     void* stream) {
-  if (n > 0) {
-    flash_fwd_bf16_kernel<<<grid_for(n, heads), kThreads, kSmemKVH,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), n, heads, scale,
-        static_cast<uint16_t*>(out), static_cast<float*>(lse));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int gh_flash_backward_dkv_bf16(const void* q, const void* k,
-                                          const void* v, const void* dout,
-                                          const void* lse, const void* delta,
-                                          int n, int heads, float scale,
-                                          void* dk, void* dv, void* stream) {
-  if (n > 0) {
-    flash_dkv_bf16_kernel<<<grid_for(n, heads), kThreads, kSmemDkvH,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta), n,
-        heads, scale, static_cast<uint16_t*>(dk),
-        static_cast<uint16_t*>(dv));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int gh_flash_backward_dq_bf16(const void* q, const void* k,
-                                         const void* v, const void* dout,
-                                         const void* lse, const void* delta,
-                                         int n, int heads, float scale,
-                                         void* dq, void* stream) {
-  if (n > 0) {
-    flash_dq_bf16_kernel<<<grid_for(n, heads), kThreads, kSmemKVH,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta), n,
-        heads, scale, static_cast<uint16_t*>(dq));
   }
   return static_cast<int>(cudaGetLastError());
 }

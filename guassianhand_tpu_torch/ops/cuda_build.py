@@ -2,9 +2,13 @@
 
 Each source under ``csrc/`` has a plain C interface and becomes its own
 shared library, compiled with ``nvcc`` for ``sm_90a`` at first use into
-``_build/`` (listed in ``.gitignore``). A library's file name carries a hash
-of its source, the shared headers (``csrc/*.cuh``) and the flags, so a
-stale build is never loaded. ``build_all`` starts one ``nvcc`` per source
+``_build/`` (listed in ``.gitignore``). A library may carry flags of its
+own after the common ones (``CudaLibrary(flags=...)``): the bf16 flash
+attention links libcuda (``-lcuda``, for ``cuTensorMapEncodeTiled``, which
+encodes its TMA tensor maps; nvcc finds the stub of libcuda in the
+toolkit). A library's file name carries a hash of its source, the
+shared headers (``csrc/*.cuh``) and all its flags, so a stale build is never
+loaded. ``build_all`` starts one ``nvcc`` per source
 at once and waits for all of them. Every
 pointer crosses as ``c_void_p``; a launch function returns
 ``cudaGetLastError()`` and the wrapper raises when it is not 0.
@@ -39,11 +43,15 @@ def nvcc() -> str:
 
 class CudaLibrary:
     """One ``csrc/`` source and the C functions it exports, each with its
-    ctypes argument types; every function returns an int error code."""
+    ctypes argument types; every function returns an int error code.
+    ``flags``: nvcc flags of this library alone, given after the source
+    (libraries to link, include paths)."""
 
-    def __init__(self, source: str, functions: Dict[str, Sequence]):
+    def __init__(self, source: str, functions: Dict[str, Sequence],
+                 flags: Sequence[str] = ()):
         self.source = CSRC / source
         self.functions = functions
+        self.flags = tuple(flags)
         self._lib = None
 
     @property
@@ -54,8 +62,8 @@ class CudaLibrary:
         # the shared headers too: a source may include any of them
         text = self.source.read_bytes() + b"".join(
             h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+        flags = " ".join((*NVCC_FLAGS, *self.flags))
+        digest = hashlib.sha256(text + flags.encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}_{digest}.so"
 
     def build(self) -> str:
@@ -88,7 +96,8 @@ def build_all(libraries: Iterable[CudaLibrary]) -> Dict[str, str]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(lib.source)]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(lib.source),
+               *lib.flags]
         running.append((lib, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

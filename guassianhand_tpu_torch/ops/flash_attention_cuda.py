@@ -8,10 +8,10 @@ mask contract is the JAX one: masked rows neither attend nor are attended
 to, and their outputs (and so their gradients) are 0. Here the live rows
 are gathered, attend among themselves through the ``FlashAttention``
 autograd Function, and are scattered back, so the kernels compute no score
-outside live x live. The kernel source is ``csrc/flash_attention.cu``,
-whose header note gives its design and what bounds it: every product runs
-on the tensor cores as TF32 MMAs in the split ("3xTF32") form, with fp32
-accumulation, which the twins' fp32 tolerances admit (one TF32 product
+outside live x live. The float32 kernels are ``csrc/flash_attention.cu``,
+whose header note gives their design and what bounds them: every product
+runs on the tensor cores as TF32 MMAs in the split ("3xTF32") form, with
+fp32 accumulation, which the twins' fp32 tolerances admit (one TF32 product
 alone does not).
 
 - ``flash_forward``: out and the rows' log-sum-exp (kernel
@@ -23,15 +23,17 @@ alone does not).
 Each wrapper takes float32 or bf16 q, k, v (and dout), one type in a call,
 and runs the kernel of that type: the float32 kernels above, or the bf16
 kernels (``flash_fwd_bf16_kernel``, ``flash_dkv_bf16_kernel``,
-``flash_dq_bf16_kernel``) that the model's bf16 compute dtype reaches.
-These follow the rounding points of JAX's Pallas flash attention in bf16:
-bf16 products accumulated in float32, the scale applied to the float32
-scores, the softmax in float32, P (and in the backward dS, scaled before
-the cast) rounded to bf16 for their products, out, dq, dk and dv rounded to
-bf16 once, lse float32. Their twins (the same functions, given bf16
-tensors) round at the kernels' points; the forward rounds P against the
-running maximum of 64-key tiles, as the kernel does (``KERNEL_TILE``).
-No other type is taken, and none is converted into another.
+``flash_dq_bf16_kernel`` in ``csrc/flash_attention_bf16.cu``: warpgroup
+MMAs fed by TMA, built with ``-lcuda``) that the model's bf16 compute dtype
+reaches. These follow the rounding points of JAX's Pallas flash attention
+in bf16: bf16 products accumulated in float32, the scale applied to the
+float32 scores, the softmax in float32, P (and in the backward dS, scaled
+before the cast) rounded to bf16 for their products, out, dq, dk and dv
+rounded to bf16 once, lse float32. Their twins (the same functions, given
+bf16 tensors) round at the kernels' points; the forward rounds P against
+the running maximum of 128-key tiles (``KERNEL_TILE``), JAX's default
+``block_k``, as the kernel does. No other type is taken, and none is
+converted into another.
 
 Each wrapper sends CUDA tensors to its kernel and CPU tensors to the twin;
 nothing falls back from one to the other. ``<wrapper>.launches`` counts
@@ -49,21 +51,23 @@ import torch
 from guassianhand_tpu_torch.ops.cuda_build import (F, I, P, CudaLibrary,
                                                    check_launch)
 
-LIB = CudaLibrary("flash_attention.cu", {
-    "gh_flash_forward": [P, P, P, I, I, F, P, P, P],
-    "gh_flash_backward_dkv": [P, P, P, P, P, P, I, I, F, P, P, P],
-    "gh_flash_backward_dq": [P, P, P, P, P, P, I, I, F, P, P],
-    "gh_flash_forward_bf16": [P, P, P, I, I, F, P, P, P],
-    "gh_flash_backward_dkv_bf16": [P, P, P, P, P, P, I, I, F, P, P, P],
-    "gh_flash_backward_dq_bf16": [P, P, P, P, P, P, I, I, F, P, P]})
+_FUNCTIONS = {"gh_flash_forward": [P, P, P, I, I, F, P, P, P],
+              "gh_flash_backward_dkv": [P, P, P, P, P, P, I, I, F, P, P, P],
+              "gh_flash_backward_dq": [P, P, P, P, P, P, I, I, F, P, P]}
+LIB = CudaLibrary("flash_attention.cu", _FUNCTIONS)
+# the TMA tensor maps are encoded with libcuda's cuTensorMapEncodeTiled
+LIB_BF16 = CudaLibrary("flash_attention_bf16.cu",
+                       {f"{name}_bf16": args
+                        for name, args in _FUNCTIONS.items()},
+                       flags=("-lcuda",))
 KERNEL_HEAD_DIM = 32
 # the kernels' operand types; lse and delta are float32 for both
 DTYPES = (torch.float32, torch.bfloat16)
 # query rows per chunk of the twins: (H, Q_CHUNK, L) scores at a time
 Q_CHUNK = 1024
-# keys a tile of the bf16 forward kernel: P is rounded to bf16 against the
-# running maximum of the tiles so far
-KERNEL_TILE = 64
+# keys a tile of the bf16 forward kernel, JAX's default block_k: P is
+# rounded to bf16 against the running maximum of the tiles so far
+KERNEL_TILE = 128
 
 
 def _heads_first(x):
@@ -225,6 +229,10 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _library(bf16: bool) -> CudaLibrary:
+    return LIB_BF16 if bf16 else LIB
+
+
 def _suffixed(name: str, bf16: bool) -> str:
     return f"{name}_bf16" if bf16 else name
 
@@ -259,7 +267,8 @@ def flash_forward(q, k, v):
     if n == 0:
         return out, lse
     bf16 = q.dtype == torch.bfloat16
-    fn = getattr(LIB.load(), _suffixed("gh_flash_forward", bf16))
+    fn = getattr(_library(bf16).load(),
+                 _suffixed("gh_flash_forward", bf16))
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), n, h,
                  1.0 / math.sqrt(d), out.data_ptr(), lse.data_ptr(),
@@ -293,7 +302,8 @@ def flash_backward_dkv(q, k, v, dout, lse, delta):
     if n == 0:
         return dk, dv
     bf16 = q.dtype == torch.bfloat16
-    fn = getattr(LIB.load(), _suffixed("gh_flash_backward_dkv", bf16))
+    fn = getattr(_library(bf16).load(),
+                 _suffixed("gh_flash_backward_dkv", bf16))
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in ins), n, h, 1.0 / math.sqrt(d),
                  dk.data_ptr(), dv.data_ptr(), _stream(dev))
@@ -316,7 +326,8 @@ def flash_backward_dq(q, k, v, dout, lse, delta):
     if n == 0:
         return dq
     bf16 = q.dtype == torch.bfloat16
-    fn = getattr(LIB.load(), _suffixed("gh_flash_backward_dq", bf16))
+    fn = getattr(_library(bf16).load(),
+                 _suffixed("gh_flash_backward_dq", bf16))
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in ins), n, h, 1.0 / math.sqrt(d),
                  dq.data_ptr(), _stream(dev))

@@ -11,7 +11,9 @@ relative error (in norm) against JAX's bf16 is at most twice JAX's own
 bf16-vs-fp32 error (``BF16_RATIO``), while the port's bf16 differs from its
 fp32 by more than 1e-4, which shows that it ran in bf16. The masked flash
 attention's twins are also held element by element against JAX's Pallas
-kernel, in bf16 ulps (``FLASH_ULPS``).
+kernel, in bf16 ulps (``FLASH_ULPS``). ``python -m tests.test_torch_bf16
+--flash-ulps`` prints those ulps with the twins' forward tile at 64 and 128
+keys; with no argument it prints ``JAX_OWN_BF16_ERROR`` anew.
 """
 import dataclasses
 
@@ -215,29 +217,50 @@ def port_attention(q, k, v, mask, tgt, flash):
     return o.detach(), list(grads)
 
 
-def test_flash_twins_bf16_match_jax_pallas_flash():
-    """The bf16 flash route on the CPU (gather, the bf16 twins through
-    ``FlashAttention``, scatter) against JAX's Pallas flash attention in
-    bf16, in TPU interpret mode, n = 512: out, dq, dk and dv bf16 as JAX's,
-    each element within FLASH_ULPS = 4 bf16 ulps of max(|JAX's value|, 1/16
-    of the array's largest |value|). The twins round P against the running
-    maximum of 64-key tiles, JAX's kernel against that of 128-key blocks,
-    normalising as it goes: each P so rounded apart moves a sum by 2^-8 of
-    its term, which near 0 is several ulps of the value. Also within
-    BF16_RATIO x JAX's own bf16-vs-fp32 error in norm (its fp32 from the scan
-    path, which JAX's tests hold equal to its flash path); masked rows 0."""
+def flash_twins_against_jax_pallas():
+    """The bf16 flash route on the CPU and JAX's Pallas flash attention in
+    bf16 (TPU interpret mode) on the same inputs, n = 512: for out, dq, dk
+    and dv, (the port's, JAX's bf16, JAX's fp32 from the scan path); the
+    mask."""
     from jax.experimental.pallas import tpu as pltpu
     q, k, v, mask, tgt = qkv_mask(512, seed=1)
     with pltpu.force_tpu_interpret_mode():
         want = jax_attention(q, k, v, mask, tgt, True, jnp.bfloat16)
     want32 = jax_attention(q, k, v, mask, tgt, False, jnp.float32)
     got = port_attention(q, k, v, mask, tgt, flash=True)
-    for name, a, b, b32 in zip(("out", "dq", "dk", "dv"), [got[0], *got[1]],
-                               [want[0], *want[1]], [want32[0], *want32[1]]):
+    return (dict(zip(("out", "dq", "dk", "dv"),
+                     zip([got[0], *got[1]], [want[0], *want[1]],
+                         [want32[0], *want32[1]]))), mask)
+
+
+def flash_ulps(arrays) -> dict:
+    """The largest |port - JAX| of each array in bf16 ulps of max(|JAX's
+    value|, FLASH_FLOOR x the array's largest)."""
+    return {name: float(bf16_ulps(a, torch.tensor(f32(b)), FLASH_FLOOR).max())
+            for name, (a, b, _) in arrays.items()}
+
+
+def test_flash_twins_bf16_match_jax_pallas_flash():
+    """The bf16 flash route on the CPU (gather, the bf16 twins through
+    ``FlashAttention``, scatter) against JAX's Pallas flash attention in
+    bf16, in TPU interpret mode, n = 512: out, dq, dk and dv bf16 as JAX's,
+    each element within FLASH_ULPS = 4 bf16 ulps of max(|JAX's value|, 1/16
+    of the array's largest |value|). The twins round P to bf16 against the
+    running maximum of 128-key tiles, JAX's default block_k
+    (``tests/test_torch_attention_tile.py``), so the points where P is rounded
+    are JAX's own when the keys are not gathered. JAX's kernel runs over the
+    padded, ungathered keys with the mask as segment ids, so with a mask its
+    blocks hold fewer live keys than the twins' tiles: P is then rounded
+    against another maximum, and each P so rounded apart moves a sum by 2^-8
+    of its term, which near 0 is several ulps of the value. Also within
+    BF16_RATIO x JAX's own bf16-vs-fp32 error in norm (its fp32 from the
+    scan path, which JAX's tests hold equal to its flash path); masked rows
+    0."""
+    arrays, mask = flash_twins_against_jax_pallas()
+    ulps = flash_ulps(arrays)
+    for name, (a, b, b32) in arrays.items():
         assert dtype_name(a) == dtype_name(b) == "bfloat16", name
-        ulps = float(bf16_ulps(a, torch.tensor(f32(b)),
-                               FLASH_FLOOR).max())
-        assert ulps <= FLASH_ULPS, (name, ulps)
+        assert ulps[name] <= FLASH_ULPS, (name, ulps[name])
         assert rel(a, f32(b)) <= BF16_RATIO * rel(f32(b), f32(b32)), name
         np.testing.assert_array_equal(f32(a)[~mask], 0.0)
 
@@ -378,5 +401,25 @@ def jax_own_bf16_error() -> dict:
                for key in TRAINED}}
 
 
+def flash_ulps_by_tile(tiles=(64, 128)) -> dict:
+    """``test_flash_twins_bf16_match_jax_pallas_flash``'s largest ulps of
+    out, dq, dk and dv with the twins' forward tile set to each of
+    ``tiles``."""
+    from guassianhand_tpu_torch.ops import flash_attention_cuda
+    saved = flash_attention_cuda.KERNEL_TILE
+    try:
+        out = {}
+        for tile in tiles:
+            flash_attention_cuda.KERNEL_TILE = tile
+            out[tile] = flash_ulps(flash_twins_against_jax_pallas()[0])
+        return out
+    finally:
+        flash_attention_cuda.KERNEL_TILE = saved
+
+
 if __name__ == "__main__":
-    print(jax_own_bf16_error())
+    import sys
+    if sys.argv[1:] == ["--flash-ulps"]:
+        print(flash_ulps_by_tile())
+    else:
+        print(jax_own_bf16_error())

@@ -96,11 +96,12 @@ def check_attention(n, live_share, dtype=torch.float32):
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
-    texts = build_all([pc.LIB, fa.LIB])
+    texts = build_all([pc.LIB, fa.LIB, fa.LIB_BF16])
     print("build seconds", time.time() - t0)
     for name, text in texts.items():
         print(name, [ln.strip() for ln in text.splitlines()
-                     if "registers" in ln or "spill" in ln])
+                     if "registers" in ln or "spill" in ln
+                     or "wgmma" in ln])
     rng = np.random.RandomState(0)
     n = 49152
     xyz = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
