@@ -84,9 +84,26 @@ Phases, each reported on its own line:
      scripts/bf16_psnr_gate.py's gate:
      50 fit steps from one init in fp32, in bf16 and in the flagship's
      bf16, each bf16 fit's rendered PSNR within 0.1 dB of the fp32 fit's;
- 10. reference: a small model rendered, and fitted for 2 steps, on the card
+ 10. the edit: configs/one_shot_edit.yaml's model (the flagship's) fits
+     its per-identity parameters to the fit scene's target through
+     cli/edit.py's own step (lr 0.001, no VGG, the codebook's identity 0,
+     the config's edit flags) with both switches on, one warm-up step and
+     10 steps, each of which launches K1 in training mode, its plan, K2,
+     K3, K4 both ways and the bf16 flash attention's three kernels once and
+     nothing else, the loss falling below the warm-up's; then cli/edit.py
+     end to end for 2 steps (its render and checkpoint written);
+ 11. evaluation: cli/fit_one_shot.py --run_val over 4 pose-varied frames
+     of that checkpoint with both switches on, each frame launching K1 in
+     render mode, its plan and K4's forward twice (its synthetic target's
+     render and the model's) and the bf16 flash attention's forward once
+     and nothing else, its test_metrics.yml holding the JAX
+     package's keys; cli/render_360.py --ckpt renders 8 views of it; SSIM
+     and the seeded random-AlexNet LPIPS of one of its frames on the card
+     and on the CPU agree within 1e-5;
+ 12. reference: a small model rendered, and fitted for 2 steps, on the card
      and on the CPU with the same weights must agree, with the switches off
-     and on.
+     and on; and rendered with both switches under each edit flag with the
+     codebook's identity 3 and seeded per-identity maps.
 Kernel launch counts are zeroed just before each slice and read just after;
 kernels and twins are timed with CUDA events, beside the launch floor (an
 empty launch, torch.cuda._sleep(0), timed the same way). With --parent DIR
@@ -114,6 +131,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 from pathlib import Path
@@ -168,6 +186,9 @@ REQUESTS, VIEWS, HW = 4, 4, 256
 RASTER_STEPS = 20
 RASTER_TURNS = 5   # rounds of parent, this, this, parent with --parent
 FIT_STEPS = 10
+EDIT_STEPS = 10    # timed edit-fit steps after the warm-up
+EVAL_FRAMES = 4    # frames of the evaluation CLI
+TURNTABLE_VIEWS = 8
 PSNR_STEPS = 50     # scripts/bf16_psnr_gate.py's fit length
 PSNR_GATE_DB = 0.1  # its bar: each bf16 fit's PSNR within this of fp32's
 SPIN_CYCLES = 50_000_000   # 25-30 ms of device time at H100 clocks
@@ -1733,6 +1754,252 @@ def phase_bf16_psnr_gate(steps: int = PSNR_STEPS) -> dict:
     return {"arms": rows, "delta_db": delta}
 
 
+def edit_config():
+    """configs/one_shot_edit.yaml: the flagship's model (its bf16 pipeline)
+    and its edit flags."""
+    from guassianhand_tpu_torch.config import load_config
+    cfg = load_config(str(REPO / "configs" / "one_shot_edit.yaml"))
+    if cfg.model != flagship_config() or not cfg.edit.enabled:
+        raise AssertionError(f"configs/one_shot_edit.yaml no longer extends "
+                             f"the flagship model with an edit: {cfg}")
+    return cfg
+
+
+def phase_edit(info: dict, out_dir: str) -> dict:
+    """The texture-edit fit at full width: configs/one_shot_edit.yaml's
+    model with both kernel switches on, the fit scene (15,404 points,
+    256^2), the codebook's identity 0 and the config's EditConfig, through
+    the edit CLI's own step (cli/edit.py::make_edit_step: lr 0.001, no
+    VGG). One warm-up step, then EDIT_STEPS steps with the launch counts
+    zeroed just before and read just after: every step launches K1 in
+    training mode, its plan, K2, K3, K4 both ways and the bf16 K5's
+    forward, dkv and dq once each, and nothing else; the loss is finite and
+    falls below the warm-up's. Then ``cli/edit.py`` end to end for 2 steps
+    into ``out_dir``, which must write its first render and its checkpoint.
+    Returns the model, the launches, the rows and the CLI's run
+    directory."""
+    from guassianhand_tpu_torch.cli import edit as edit_cli
+    from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
+                                                       synthetic_batch)
+    from guassianhand_tpu_torch.models.one_shot import build_model
+    cfg = edit_config()
+    model_cfg = kernel_config(cfg.model, True)
+    scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
+                                     width=HW, device="cuda")
+    model = build_model(model_cfg, seed=0, device="cuda")
+    step, batch, _, _, _ = edit_cli.make_edit_step(
+        model, synthetic_batch(scene, seed=0, with_target=True),
+        edit_cli.edit_fit_config(1000), cfg.edit, 0, height=HW, width=HW)
+    want = FIT_KERNELS + FLASH_BF16
+    with flash_switch(True):
+        warmup_loss = float(step(batch)[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        rows = []
+        for i in range(EDIT_STEPS):
+            counts = read_launches()
+            t = time.perf_counter()
+            loss, _ = step(batch)
+            torch.cuda.synchronize()
+            per = {k: v - counts[k] for k, v in read_launches().items()}
+            rows.append({"step": i, "ms": (time.perf_counter() - t) * 1e3,
+                         "loss": float(loss)})
+            off = {k: v for k, v in per.items() if v != int(k in want)}
+            if off:
+                raise AssertionError(f"edit step {i}: launches {off} where "
+                                     f"each of {want} launches once: {per}")
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        busy_ms, top = device_profile(lambda: step(batch))
+    ms = [r["ms"] for r in rows]
+    losses = [r["loss"] for r in rows]
+    row = {"config": "configs/one_shot_edit.yaml", "route": "kernels",
+           "edit": dataclasses.asdict(cfg.edit), "identity_from_book": 0,
+           "n_points": scene.n_points, "steps": EDIT_STEPS,
+           "ms_per_step": ms, "ms_per_step_mean": float(np.mean(ms)),
+           "device_busy_ms_profiled_step": busy_ms,
+           "device_busy_share": busy_ms / float(np.mean(ms)),
+           "peak_bytes": peak, "warmup_loss": warmup_loss, "losses": losses,
+           "launches": launches, "top_device_ms": top,
+           "card": info["nvidia_smi"]}
+    log("edit", **row)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"the edit fit gave a non-finite loss: {losses}")
+    if not losses[-1] < warmup_loss:
+        raise AssertionError(f"the edit fit's loss did not fall: "
+                             f"{warmup_loss} then {losses}")
+    t0 = time.perf_counter()
+    with flash_switch(True):
+        rc = edit_cli.main([
+            "--config", str(REPO / "configs" / "one_shot_edit.yaml"),
+            "--steps", "2", "--left-only", "--duplication", "--identity", "1",
+            f"out_dir={out_dir}", "expname=chip",
+            "model.renderer.raster.projection_impl=pallas"])
+    run_dir = Path(out_dir) / "chip_edit"
+    wrote = {name: (run_dir / name).is_file()
+             for name in ("vis/edit0000.png", "ckpts/edit.ckpt")}
+    log("edit_cli", rc=rc, seconds=time.perf_counter() - t0, wrote=wrote)
+    if rc != 0 or not all(wrote.values()):
+        raise AssertionError(f"cli/edit.py: rc {rc}, wrote {wrote}")
+    return {"model": model, "launches": launches, "row": row,
+            "run_dir": run_dir}
+
+
+def phase_edit_reference() -> None:
+    """The small model of phase_reference with both kernel switches on, on
+    the card and on the CPU with the same weights, its per-identity maps
+    set from a seed (so that the edit flags change the render), the
+    codebook's identity 3 and each of the edit flags: rgb and mask agree
+    within the 1e-4 phase_reference holds."""
+    from guassianhand_tpu_torch.cli.render_360 import (orbit_batch,
+                                                       render_request)
+    from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
+                                                       synthetic_batch)
+    from guassianhand_tpu_torch.models.one_shot import build_model, no_tf32
+    from guassianhand_tpu_torch.render.renderer import EditConfig
+    cfg = kernel_config(reference_config(), True)
+    hw = REF_HW
+    scene = SyntheticHandScene.build(n_vertices=96, subdivide=1, height=hw,
+                                     width=hw, device="cpu")
+    batch = orbit_batch(scene, synthetic_batch(scene, seed=0), 0, 2, 2)
+    cpu = build_model(cfg, seed=0, device="cuda").to("cpu")
+    gen = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        for p, scale, base in ((cpu.color_w, 0.2, 1.0), (cpu.color_b, 0.3, 0),
+                               (cpu.opacity_b, 0.1, 0)):
+            p.copy_(base + scale * torch.randn(p.shape, generator=gen))
+    card = build_model(cfg, seed=0, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rows = {}
+    for flags in (EditConfig(enabled=True, edit_left_only=True),
+                  EditConfig(enabled=True, duplication=True),
+                  EditConfig(enabled=True, edit_left_only=True,
+                             duplication=True)):
+        outs = {}
+        with flash_switch(True):
+            for device, model in (("cuda", card), ("cpu", cpu)):
+                b = {k: v.to(device) for k, v in batch.items()}
+                with torch.inference_mode(), no_tf32():
+                    outs[device] = model(b, hw, hw, edit=flags,
+                                         identity_from_book=3)
+        name = "+".join(k for k, v in dataclasses.asdict(flags).items()
+                        if v and k != "enabled")
+        rows[name] = {k: float((outs["cuda"][k].cpu() - outs["cpu"][k])
+                               .abs().max())
+                      for k in ("comp_rgb", "comp_mask")}
+    log("edit_reference", identity_from_book=3, cuda_vs_cpu_max_abs=rows)
+    bad = {k: v for k, v in rows.items() if max(v.values()) > 1e-4}
+    if bad:
+        raise AssertionError(f"card and CPU edit renders disagree: {bad}")
+
+
+EVAL_KEYS = ("psnr", "ssim", "mse", "eval_frames", "eval_frames_per_s",
+             "device_peak_bytes", "weights_provenance")
+
+
+def phase_eval(info: dict, edit: dict, out_dir: str) -> dict:
+    """The evaluation path of the edited avatar: ``cli/fit_one_shot.py
+    --run_val --synthetic --val_frames EVAL_FRAMES --no_images`` under
+    configs/one_shot_edit.yaml with both switches, from the checkpoint
+    phase_edit's CLI run wrote, with the launch counts zeroed just before
+    and read just after: each frame launches K1 in render mode, its plan
+    and K4's forward twice (its synthetic target's render and the model's)
+    and the bf16 K5's forward once, and nothing else. Its test_metrics.yml
+    must hold EVAL_KEYS and no lpips (no LPIPS weights). Then
+    ``cli/render_360.py --ckpt`` renders TURNTABLE_VIEWS views of it, the
+    model call of the eval's first frame is timed, and train/metrics.ssim
+    and train/lpips.LPIPS (seeded random AlexNet) score that frame on the
+    card and on the CPU, within 1e-5."""
+    import yaml
+    from guassianhand_tpu_torch.cli import fit_one_shot, render_360
+    from guassianhand_tpu_torch.data.synthetic import SyntheticHandScene
+    from guassianhand_tpu_torch.models.one_shot import no_tf32
+    from guassianhand_tpu_torch.train import checkpoints, lpips, metrics
+    cfg_path = str(REPO / "configs" / "one_shot_edit.yaml")
+    run_dir = edit["run_dir"]
+    switches = "model.renderer.raster.projection_impl=pallas"
+    zero_launches()
+    t0 = time.perf_counter()
+    with flash_switch(True):
+        rc = fit_one_shot.main([
+            "--config", cfg_path, "--run_val", "--synthetic", "--val_frames",
+            str(EVAL_FRAMES), "--no_images", f"out_dir={out_dir}",
+            f"expname={run_dir.name}", switches])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"cli/fit_one_shot.py --run_val: rc {rc}")
+    # a frame renders its synthetic target (K1, its plan, K4) and the model
+    want = {k: EVAL_FRAMES * (1 + (k != "flash_forward_bf16"))
+            for k in SERVE_FLAGSHIP}
+    off = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+    if off:
+        raise AssertionError(f"the evaluation launched {off}, not {want}: "
+                             f"{launches}")
+    scores = yaml.safe_load((run_dir / "test_metrics.yml").read_text())
+    missing = [k for k in EVAL_KEYS if k not in scores]
+    if missing or "lpips" in scores or scores["eval_frames"] != EVAL_FRAMES \
+            or not all(math.isfinite(scores[k]) for k in ("psnr", "ssim",
+                                                          "mse")):
+        raise AssertionError(f"test_metrics.yml: missing {missing}: {scores}")
+
+    t1 = time.perf_counter()
+    frames = Path(out_dir) / "turntable"
+    with flash_switch(True):
+        rc = render_360.main([
+            "--config", cfg_path, "--ckpt", str(run_dir / "ckpts" /
+                                                "last.ckpt"),
+            "--views", str(TURNTABLE_VIEWS), "--views_per_call", str(VIEWS),
+            f"--out={frames}", switches])
+    turntable_s = time.perf_counter() - t1
+    written = sorted(p.name for p in frames.glob("*.png"))
+    if rc != 0 or len(written) != TURNTABLE_VIEWS:
+        raise AssertionError(f"cli/render_360.py --ckpt: rc {rc}, frames "
+                             f"{written}")
+
+    # one of the eval's frames, scored on the card and on the CPU
+    cfg = edit_config()
+    model = edit["model"]
+    checkpoints.load_checkpoint(str(run_dir / "ckpts" / "last.ckpt"), model)
+    scene = SyntheticHandScene.build(
+        n_vertices=778, subdivide=min(cfg.data.edge_subdivide, 1),
+        height=HW, width=HW, device="cuda")
+    batch = next(fit_one_shot.eval_batches(scene, cfg, EVAL_FRAMES))
+    with flash_switch(True), torch.inference_mode(), no_tf32():
+        pred = model(batch, HW, HW)["comp_rgb"][0, 0]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _ in range(3):
+            model(batch, HW, HW)
+        torch.cuda.synchronize()
+        model_ms = (time.perf_counter() - t2) * 1e3 / 3
+        tgt = batch["target_rgb"][0]
+        crops = [metrics.bbox_crop(x, batch["mask_at_box"])
+                 for x in (pred, tgt)]
+        lp = lpips.LPIPS()
+        card = {"ssim": float(metrics.ssim(*crops)),
+                "lpips": float(lpips.lpips_from_01(lp.cuda(), pred[None],
+                                                   tgt[None]))}
+        host = {"ssim": float(metrics.ssim(*(c.cpu() for c in crops))),
+                "lpips": float(lpips.lpips_from_01(lp.cpu(), pred.cpu()[None],
+                                                   tgt.cpu()[None]))}
+    diff = {k: abs(card[k] - host[k]) for k in card}
+    row = {"config": "configs/one_shot_edit.yaml", "route": "kernels",
+           "frames": EVAL_FRAMES, "cli_seconds": seconds,
+           "ms_per_frame": 1e3 / scores["eval_frames_per_s"],
+           "model_ms_per_frame": model_ms, "n_points": scene.n_points,
+           "metrics": scores, "launches": launches,
+           "turntable_views": TURNTABLE_VIEWS, "turntable_seconds": turntable_s,
+           "metrics_card": card, "metrics_cpu": host,
+           "card_vs_cpu_abs": diff, "card": info["nvidia_smi"]}
+    log("eval", **row)
+    if max(diff.values()) > 1e-5:
+        raise AssertionError(f"ssim or LPIPS on the card and the CPU "
+                             f"disagree: {row}")
+    return {"launches": launches, "row": row}
+
+
 def phase_raster_fwd_bwd(parent=None) -> dict:
     """bench.py::main's step on the card: project, bin, composite forward
     and backward at the bench scene, with the gradients of xyz, scaling,
@@ -2400,6 +2667,12 @@ def main(argv=None) -> int:
     flagship_serve = flagship["serve_launches"]
     del flagship
     phase_bf16_psnr_gate()
+    with tempfile.TemporaryDirectory() as out_dir:
+        edit = phase_edit(info, out_dir)
+        evaluation = phase_eval(info, edit, out_dir)
+    edit_launches, eval_launches = edit["launches"], evaluation["launches"]
+    del edit
+    phase_edit_reference()
     for kernels in (False, True):
         phase_reference(kernels)
         phase_fit_reference(kernels)
@@ -2411,7 +2684,9 @@ def main(argv=None) -> int:
         return {"serve": serve_launches[name],
                 "serve_with_switches": serve_kernel_launches[name],
                 "fit": fit_launches[name],
-                "fit_with_switches": kfit_launches[name]}
+                "fit_with_switches": kfit_launches[name],
+                "fit_edit_flagship_bf16": edit_launches[name],
+                "eval_flagship_bf16": eval_launches[name]}
 
     flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     flash_via = "via guassianhand_tpu/ops/blockwise_attention.py:40"
@@ -2581,7 +2856,9 @@ def main(argv=None) -> int:
             "launches": bf16_launches[f"{name}_bf16"],
             "launches_by_path": {
                 "fit_flagship_bf16": bf16_launches[f"{name}_bf16"],
-                "serve_flagship_bf16": flagship_serve[f"{name}_bf16"]},
+                "serve_flagship_bf16": flagship_serve[f"{name}_bf16"],
+                "fit_edit_flagship_bf16": edit_launches[f"{name}_bf16"],
+                "eval_flagship_bf16": eval_launches[f"{name}_bf16"]},
             "max_abs_err": max(attn16[f"{e}_max_abs_err"] for e in err),
             "max_ulps": max(attn16[f"{e}_max_ulps"] for e in err),
             "ms": attn16[f"{key}_ms"], "plain_ms": attn16[plain],

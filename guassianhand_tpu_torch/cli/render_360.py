@@ -1,9 +1,12 @@
 """Turntable renders of a one-shot avatar (counterpart of
-``cli/render_360.py``): a full-width model with seeded weights, the
-synthetic two-hand scene in one pose, orbit views, PNG frames.
+``cli/render_360.py``): a full-width model with seeded weights, or a
+fitted or edited one from a checkpoint of the port (``--ckpt``, as the
+fit and edit CLIs write them), the synthetic two-hand scene in one pose,
+orbit views, PNG frames.
 
   python -m guassianhand_tpu_torch.cli.render_360 --views 8 --out frames/ \
-      [--config configs/one_shot.yaml] [key.sub=value ...]
+      [--ckpt run/ckpts/last.ckpt] [--config configs/one_shot.yaml] \
+      [key.sub=value ...]
 
 Each call to the model renders ``--views_per_call`` views of the pose in one
 stacked multi-view raster. Runs on ``cuda`` unless ``--device cpu``. The
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import Dict
 
@@ -32,11 +36,12 @@ from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
 from guassianhand_tpu_torch.models.one_shot import (OneShotAvatarModel,
                                                     OneShotConfig, build_model,
                                                     no_tf32)
+from guassianhand_tpu_torch.train.checkpoints import load_checkpoint
 from guassianhand_tpu_torch.utils.saving import save_video_frames
 
 ORBIT_RADIUS = 0.6
-# configs/one_shot.yaml's model at its published widths, in fp32 (the yaml's
-# bf16 compute is not ported yet)
+# configs/one_shot.yaml's model at its published widths, in fp32 (the yaml
+# itself asks for the bf16 feature pipeline)
 MODEL_CONFIG = OneShotConfig(narrow_color_b=True)
 
 
@@ -76,7 +81,13 @@ def main(argv=None) -> int:
     parser.add_argument("--config", default=None,
                         help="a YAML config whose model section builds the "
                              "model")
+    parser.add_argument("--ckpt", default=None,
+                        help="a checkpoint of the port whose parameters the "
+                             "model takes (its config must build the same "
+                             "model)")
     args, extras = parser.parse_known_args(argv)
+    if args.ckpt and not os.path.exists(args.ckpt):
+        parser.error(f"--ckpt {args.ckpt} does not exist")
     cfg = (load_config(args.config, extras) if args.config or extras
            else ExperimentConfig(model=MODEL_CONFIG))
     print(compute_dtype_line(cfg.model))
@@ -87,6 +98,8 @@ def main(argv=None) -> int:
                                      device=args.device)
     batch = synthetic_batch(scene, seed=args.seed)
     model = build_model(cfg.model, seed=args.seed, device=args.device)
+    if args.ckpt:
+        load_checkpoint(args.ckpt, model)
     frames = []
     for first in range(0, args.views, args.views_per_call):
         n = min(args.views_per_call, args.views - first)

@@ -13,7 +13,10 @@ keys, which are the reference torch names. The conversions:
   upsampled 2x2 block comes out transposed);
 - per-identity maps and tokenizer embeddings as they are;
 - the JAX model keeps ``self_attn_layer`` at its top level, the reference
-  (and the port) under ``renderer``.
+  (and the port) under ``renderer``;
+- ``identity_code_infer`` exists in a JAX tree only when the model was
+  initialised with ``infer_identity=True``; the port's head is always
+  there, and keeps its own values where the tree has none.
 
 ``load_jax_vgg`` loads the JAX ``VGGLoss``'s convolution weights (HWIO)
 into the port's ``VGGLoss`` (OIHW buffers).
@@ -28,8 +31,8 @@ import torch.nn as nn
 
 from guassianhand_tpu_torch.models.one_shot import OneShotAvatarModel
 from guassianhand_tpu_torch.nn.heads import (AdditionalFeaturesFC, GSLayer,
-                                             SelfAttn, VertPosRefinement,
-                                             VertValid)
+                                             IdentityCodeInfer, SelfAttn,
+                                             VertPosRefinement, VertValid)
 from guassianhand_tpu_torch.nn.mlp import (MLP, MLPBlock, MLPResBlock,
                                            ResnetBlockFC)
 from guassianhand_tpu_torch.nn.pointnet import LocalPoolPointnet
@@ -159,6 +162,22 @@ def _self_attn(m: SelfAttn, p: Tree) -> Tree:
             **_under("ff", _mlp_block(m.ff, p["MLPResBlock_0"]))}
 
 
+def _identity_code_infer(m: IdentityCodeInfer, p: Tree) -> Tree:
+    return {**_under("fc", _linear(p["Dense_0"])),
+            **_under("layer_norm", _norm(p["LayerNorm_0"])),
+            **_under("fc_out", _linear(p["Dense_1"]))}
+
+
+def identity_code_infer_to_jax(m: IdentityCodeInfer) -> Tree:
+    """The head's flax params (the inverse of the mapping above)."""
+    def dense(lin):
+        return {"kernel": lin.weight.detach().cpu().numpy().T,
+                "bias": lin.bias.detach().cpu().numpy()}
+    return {"Dense_0": dense(m.fc), "Dense_1": dense(m.fc_out),
+            "LayerNorm_0": {"scale": m.layer_norm.weight.detach().cpu().numpy(),
+                            "bias": m.layer_norm.bias.detach().cpu().numpy()}}
+
+
 def _renderer(m: GSRenderer, p: Tree) -> Tree:
     sd = {**_under("mlp_net", _mlp(m.mlp_net, p["mlp_net"])),
           **_under("gs_net", _gs_layer(m.gs_net, p["gs_net"])),
@@ -186,6 +205,12 @@ def _model(m: OneShotAvatarModel, p: Tree) -> Tree:
         sd.update(_under(name, fn(getattr(m, name), p[name])))
     renderer = {**p["renderer"], "self_attn_layer": p["self_attn_layer"]}
     sd.update(_under("renderer", _renderer(m.renderer, renderer)))
+    head = m.identity_code_infer
+    sd.update(_under("identity_code_infer",
+                     _identity_code_infer(head, p["identity_code_infer"])
+                     if "identity_code_infer" in p else
+                     {k: v.detach().cpu().numpy()
+                      for k, v in head.state_dict().items()}))
     return sd
 
 
@@ -198,7 +223,7 @@ _CONVERTERS: Dict[type, Callable[[nn.Module, Tree], Tree]] = {
     TransformerBlock: _transformer_block, Transformer1D: _transformer1d,
     GSLayer: _gs_layer, VertValid: _valid_head,
     VertPosRefinement: _valid_head, AdditionalFeaturesFC: _additional,
-    SelfAttn: _self_attn,
+    SelfAttn: _self_attn, IdentityCodeInfer: _identity_code_infer,
 }
 
 

@@ -7,10 +7,13 @@ overrides alone needs no YAML package. The run's merged config is written
 as JSON. Every key of the repo's configs loads, with the JAX package's
 value; unknown keys raise. Not every key has an effect yet: the
 InterHand2.6M paths and flags of ``DataConfig`` (the synthetic scene reads
-none of them), the edit settings (``data.edit``, ``data.image_path``,
-``data.mask_path``, ``edit``; the fit CLI refuses an edit config), the TPU
-layout keys of ``RasterizeConfig`` and the XLA knob ``backbone_scan`` of
-``OneShotConfig`` (documented there). ``model.compute_dtype`` takes effect:
+none of them; ``data.edit``, ``data.image_path`` and ``data.mask_path``
+choose the InterHand2.6M edit frame and image), the TPU layout keys of
+``RasterizeConfig`` and the XLA knob ``backbone_scan`` of ``OneShotConfig``
+(documented there). The ``edit`` section is the renderer's
+``EditConfig``: the fit CLI does not read it, as in the JAX package, and
+the edit CLI (``cli/edit.py``) takes its flags from its command line, as
+the JAX one does. ``model.compute_dtype`` takes effect:
 the entry points print the type the feature pipeline computes in, and the
 snapshot records it as ``compute_dtype_effective``.
 """
@@ -40,7 +43,7 @@ class DataConfig:
     mask_sa: bool = True
     render_mask: bool = True
     color_jitter: bool = False
-    # the edit fit's fixed frame and custom image (not ported)
+    # the InterHand2.6M edit fit's fixed frame and custom image (not ported)
     edit: bool = False
     image_path: Optional[str] = None
     mask_path: Optional[str] = None
@@ -56,6 +59,8 @@ class ExperimentConfig:
     fit: FitConfig = FitConfig()
     edit: EditConfig = EditConfig()
     vgg_weights: Optional[str] = None
+    # LPIPS AlexNet weights (train/lpips.py; $GH_LPIPS_WEIGHTS otherwise)
+    lpips_weights: Optional[str] = None
     pretrained: Optional[str] = None
     resume: bool = True
 

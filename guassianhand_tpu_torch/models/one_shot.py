@@ -23,6 +23,15 @@ parameter: ``static_features`` computes them once for a one-shot fit and
 ``features`` reuses them from ``batch["static_feats"]``. The model runs in
 eval semantics (no dropout), as the JAX fit step applies it.
 
+The identity plane is ``identity_code_one_shot``, or with
+``identity_from_book=i`` the codebook's entry i; with ``infer_identity``
+the ``identity_code_infer`` head adds a code inferred from k =
+``identity_infer_tokens`` points (indices arange(k) * N // k) to it as a
+per-channel bias. The head is built always (the JAX model creates its
+parameters only when initialised with the flag) and trains with the
+identity codes. ``edit`` (``render/renderer.py::EditConfig``) reaches the
+renderer's appearance residuals.
+
 Parameters carry the reference ``state_dict`` names, so
 ``compat/from_jax.py`` and a reference checkpoint both load by key. They
 are float32 whatever ``compute_dtype`` says. With ``compute_dtype=
@@ -42,7 +51,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
-from guassianhand_tpu_torch.nn.heads import AdditionalFeaturesFC
+from guassianhand_tpu_torch.nn.heads import (AdditionalFeaturesFC,
+                                             IdentityCodeInfer)
 from guassianhand_tpu_torch.nn.mlp import MLP, init_default_, normal_
 from guassianhand_tpu_torch.nn.pointnet import LocalPoolPointnet
 from guassianhand_tpu_torch.nn.spatial import pe_dim, positional_encoding
@@ -50,7 +60,8 @@ from guassianhand_tpu_torch.nn.tokenizers import (
     TriplaneLearnablePositionalEmbedding, TriplaneUpsampler)
 from guassianhand_tpu_torch.nn.transformer import Transformer1D
 from guassianhand_tpu_torch.ops.grid_sample import grid_sample_batched
-from guassianhand_tpu_torch.render.renderer import GSRenderer, RendererConfig
+from guassianhand_tpu_torch.render.renderer import (EditConfig, GSRenderer,
+                                                   RendererConfig)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +80,8 @@ class OneShotConfig:
     identity_book_size: int = 27
     residual_map_hw: tuple = (1024, 2048)
     additional_feature_dim: int = 51
+    # the points the identity-code inference head reads
+    identity_infer_tokens: int = 256
     # stored and read nowhere, as in the JAX package: the synthetic batch's
     # interaction mask takes k = min(100, N // 4) and threshold 10
     interaction_k: int = 100
@@ -163,6 +176,9 @@ class OneShotAvatarModel(nn.Module):
         self.renderer = GSRenderer(c.renderer,
                                    interaction_cap=c.interaction_cap,
                                    compute_dtype=dt)
+        self.identity_code_infer = IdentityCodeInfer(
+            xyz_dim + c.pose_embed_dim, c.identity_channels,
+            c.identity_infer_tokens)
 
         mh, mw = c.residual_map_hw
         zeros = torch.zeros
@@ -181,8 +197,12 @@ class OneShotAvatarModel(nn.Module):
         """Seeded init with the JAX model's schemes: default layers by
         fan-in, the tokenizer embeddings, the reference GSLayer heads, the
         clipped identity code book; the other per-identity maps 0 and
-        color_w 1."""
-        init_default_(self, generator)
+        color_w 1. The identity-code head is drawn last, so the other
+        parameters take the same values from a seed with or without it."""
+        head = self.identity_code_infer
+        for child in self.children():
+            if child is not head:
+                init_default_(child, generator)
         self.tokenizer_texture.reset_parameters(generator)
         self.tokenizer_shade.reset_parameters(generator)
         self.renderer.gs_net.reset_parameters()
@@ -193,6 +213,7 @@ class OneShotAvatarModel(nn.Module):
                       self.xyz_b, self.xyz_b_map, self.opacity_b):
                 p.zero_()
             self.color_w.fill_(1.0)
+        init_default_(head, generator)
 
     def scene_codes(self, uv_n, uv_pe, id_vert, tokens_shade):
         """The (B, C80, 2S, 4S) scene-code plane."""
@@ -248,10 +269,14 @@ class OneShotAvatarModel(nn.Module):
             emb = self._frame_embeds(batch)
             return {**emb, "tokens_shade": self._shade_tokens(batch, emb)}
 
-    def features(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+    def features(self, batch: Dict[str, Any],
+                 identity_from_book: Optional[int] = None,
+                 infer_identity: bool = False) -> Dict[str, Any]:
         """The pre-render feature pipeline; ``hidden`` is (B, N, 131). With
         ``batch["static_feats"]`` (``static_features``) the frame embeddings
-        and the shade branch are taken from it, detached."""
+        and the shade branch are taken from it, detached. The identity plane
+        is the codebook's entry ``identity_from_book`` when given, and with
+        ``infer_identity`` the inferred code is added to it per channel."""
         points = batch["points"]
         b, n, _ = points.shape
         static = batch.get("static_feats")
@@ -264,8 +289,17 @@ class OneShotAvatarModel(nn.Module):
         uv_n, uv_pe, xyz_pe = emb["uv_n"], emb["uv_pe"], emb["xyz_pe"]
         camera_feats, pose_feats = emb["camera_feats"], emb["pose_feats"]
 
-        id_plane = self.identity_code_one_shot.expand(
-            b, *self.identity_code_one_shot.shape[1:])
+        id_plane = self.identity_code_one_shot
+        if identity_from_book is not None:
+            id_plane = self.identity_code_book[identity_from_book][None]
+        id_plane = id_plane.expand(b, *id_plane.shape[1:])
+        if infer_identity:
+            k = self.cfg.identity_infer_tokens
+            sel = torch.arange(k, device=points.device) * n // k
+            code = self.identity_code_infer(torch.cat(
+                [points[:, sel], xyz_pe[:, sel],
+                 pose_feats.float()[:, None].expand(b, k, -1)], dim=-1))
+            id_plane = id_plane + code[:, :, None, None]
         id_vert = grid_sample_batched(id_plane, uv_n)          # (B, N, 33)
         codes = self.scene_codes(uv_n, uv_pe, id_vert, tokens_shade)
         inter = batch["inter_mask"].to(torch.float32)[..., None]
@@ -286,19 +320,23 @@ class OneShotAvatarModel(nn.Module):
                 # the cap is below the interacting count)
                 "interaction_overflow": inter_overflow}
 
-    def forward(self, batch: Dict[str, Any], height: int,
-                width: int) -> Dict[str, Any]:
+    def forward(self, batch: Dict[str, Any], height: int, width: int,
+                edit: EditConfig = EditConfig(),
+                identity_from_book: Optional[int] = None,
+                infer_identity: bool = False) -> Dict[str, Any]:
         """batch (batched over B): points (B, N, 3), points_tar (optional),
         vert_uv (B, N, 2), inter_mask (B, N) bool, mano_pose (B, 96),
         c2w (B, 4, 4), intrinsic_normed (B, 3, 3), w2c_render (B, V, 4, 4),
-        K_render (B, V, 3/4, 3/4), background (B, 3) optional.
+        K_render (B, V, 3/4, 3/4), background (B, 3) optional. ``edit``
+        goes to the renderer; ``identity_from_book`` and ``infer_identity``
+        to ``features``.
 
         Returns comp_rgb (B, V, H, W, 3), comp_mask (B, V, H, W), hidden,
         n_pairs (B,), overflow (B,), 3dgs (per-sample list), points and
         interaction_overflow."""
         points = batch["points"]
         b = points.shape[0]
-        feats = self.features(batch)
+        feats = self.features(batch, identity_from_book, infer_identity)
         hidden = feats["hidden"]
         query = batch.get("points_tar", points)
         background = batch.get("background")
@@ -307,7 +345,7 @@ class OneShotAvatarModel(nn.Module):
             batch["K_render"][i], height=height, width=width,
             background=None if background is None else background[i],
             color_w=self.color_w, xyz_b=self.xyz_b, color_b_map=self.color_b,
-            opacity_b_map=self.opacity_b) for i in range(b)]
+            opacity_b_map=self.opacity_b, edit=edit) for i in range(b)]
         return {"comp_rgb": torch.stack([o["comp_rgb"] for o in outs]),
                 "comp_mask": torch.stack([o["comp_mask"] for o in outs]),
                 "hidden": hidden,

@@ -8,6 +8,8 @@
   sigmoid-bounded offset of +-1.2/32*0.5; rgb sigmoid with ``use_rgb``).
 - ``VertValid`` / ``VertPosRefinement``: ``ff`` (MLPBlock) and ``fc``.
 - ``AdditionalFeaturesFC``: ``ff1`` (MLPBlock).
+- ``IdentityCodeInfer``: a 33-d identity code in (-1, 1) from point tokens,
+  ``fc`` -> ``layer_norm`` -> flatten -> ``fc_out`` -> sigmoid * 2 - 1.
 - ``SelfAttn``: exact masked attention over the interacting points, 4
   heads of f // 4; rows outside the mask pass through unchanged. With
   ``cap`` only the first max(128, cap) interacting rows attend (among
@@ -123,6 +125,31 @@ class AdditionalFeaturesFC(nn.Module):
 
     def forward(self, x):
         return self.ff1(x)
+
+
+class IdentityCodeInfer(nn.Module):
+    """The identity-code inference head: (B, n_token, dim_in) tokens ->
+    (B, code_dim) in (-1, 1). Float32, as the JAX head (no compute
+    dtype). Built with zero weights, so that it infers the code 0 until it
+    is seeded (``init_default_``), loaded or trained: a model whose JAX
+    tree has no head is then the same model wherever it is loaded."""
+
+    def __init__(self, dim_in: int, code_dim: int = 33, n_token: int = 256):
+        super().__init__()
+        self.n_token = n_token
+        self.fc = nn.Linear(dim_in, code_dim)
+        self.layer_norm = nn.LayerNorm(code_dim, eps=LN_EPS)
+        self.fc_out = nn.Linear(n_token * code_dim, code_dim)
+        for lin in (self.fc, self.fc_out):
+            nn.init.zeros_(lin.weight)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        b, n, _ = tokens.shape
+        if n != self.n_token:
+            raise ValueError(f"{n} tokens, the head takes {self.n_token}")
+        h = self.layer_norm(self.fc(tokens))
+        return torch.sigmoid(self.fc_out(h.reshape(b, -1))) * 2.0 - 1.0
 
 
 class SelfAttn(nn.Module):

@@ -53,12 +53,16 @@ class RasterizeConfig:
     projection_impl: str = "xla"
     # The JAX package's TPU layout keys, accepted so that its configs load,
     # with no effect here: the port bins every (Gaussian, tile) pair exactly
-    # with dynamic shapes (no tile or pair caps, no cell walk) and keeps
-    # colours in float32 (no packed rgb lane).
+    # with dynamic shapes (no tile, block or pair caps, no cell walk) and
+    # keeps colours in float32 (no packed rgb lane); ``interpret`` (Pallas'
+    # interpreter) has none either, since a CPU tensor always goes to a
+    # kernel's plain twin.
     pack_rgb: bool = False
     walk_cells: int = 0
     max_tiles_per_gaussian: int = 16
+    max_blocks_per_tile: int = 64
     pairs_per_gaussian: float = 4.5
+    interpret: bool = False
 
     def __post_init__(self):
         if self.projection_impl not in PROJECTIONS:

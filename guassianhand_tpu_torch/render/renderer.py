@@ -8,7 +8,7 @@ and the multi-view render.
 - appearance: ``color_w`` gain/bias, the ``color_b`` map sampled at the
   Gaussians' UVs (only its first rgb triple is read, so the 48-channel and
   the narrow 3-channel layouts give the same result), ``opacity_b`` and
-  ``xyz_b``;
+  ``xyz_b``, under the texture-edit flags of ``EditConfig``;
 - views: one stacked multi-view raster, one binning and one composite
   launch for all views.
 
@@ -37,12 +37,17 @@ from guassianhand_tpu_torch.ops.rasterize import (RasterizeConfig,
 
 @dataclasses.dataclass(frozen=True)
 class EditConfig:
-    """The JAX package's texture-edit flags (``render/renderer.py::
-    EditConfig``), accepted so that its edit configs load. The edit path is
-    not ported: the fit CLI refuses a config that enables it."""
+    """Texture-edit flags (the JAX package's ``render/renderer.py::
+    EditConfig``), read by ``GSRenderer.apply_appearance``. In the packed
+    atlas the left half (u < 0.5) is the right hand."""
 
+    # per-hand color_w pairs: the right hand's gain and bias are cw[0] and
+    # cw[1], the left hand's cw[2] and cw[3]
     enabled: bool = False
+    # color_b zeroed on the right hand
     edit_left_only: bool = False
+    # the right hand samples color_b at u + 0.5 (the left hand's texture)
+    # and both hands take the left hand's color_w pair
     duplication: bool = False
 
 
@@ -94,16 +99,34 @@ class GSRenderer(nn.Module):
                          color_w: Optional[torch.Tensor],
                          xyz_b: Optional[torch.Tensor],
                          color_b_map: Optional[torch.Tensor],
-                         opacity_b_map: Optional[torch.Tensor]) -> Gaussians:
-        """color_w (48,): the first two rgb triples are gain and bias;
-        color_b_map (48 or 3, Hm, Wm); opacity_b_map (1, Hm, Wm); xyz_b (3,)."""
+                         opacity_b_map: Optional[torch.Tensor],
+                         edit: EditConfig = EditConfig()) -> Gaussians:
+        """color_w (48,): the first two rgb triples are gain and bias (with
+        ``edit.enabled`` the first four, a pair for each hand);
+        color_b_map (48 or 3, Hm, Wm); opacity_b_map (1, Hm, Wm); xyz_b (3,).
+        ``edit.duplication`` shifts only the colour map's sample, not the
+        opacity map's."""
         uvn = normalize_uv(uv)
         rgb = gs.shs[:, 0, :]
+        right = uv[:, 0] < 0.5
+        uvn_color = uvn
+        if edit.duplication:
+            shifted = torch.stack([uvn[:, 0] + 1.0, uvn[:, 1]], dim=1)
+            uvn_color = torch.where(right[:, None], shifted, uvn)
         if color_w is not None:
             cw = color_w.reshape(16, 3)
-            rgb = rgb * cw[0][None] + cw[1][None] - 1.0
+            if edit.enabled:
+                left_pair = (~right[:, None]) | edit.duplication
+                gain = torch.where(left_pair, cw[2][None], cw[0][None])
+                bias = torch.where(left_pair, cw[3][None], cw[1][None])
+            else:
+                gain, bias = cw[0][None], cw[1][None]
+            rgb = rgb * gain + bias - 1.0
         if color_b_map is not None:
-            rgb = rgb + grid_sample_2d(color_b_map[:3], uvn)
+            cb = grid_sample_2d(color_b_map[:3], uvn_color)
+            if edit.edit_left_only:
+                cb = cb * (~right)[:, None].to(cb.dtype)
+            rgb = rgb + cb
         opacity = gs.opacity
         if opacity_b_map is not None:
             opacity = opacity + grid_sample_2d(opacity_b_map, uvn)
@@ -126,11 +149,12 @@ class GSRenderer(nn.Module):
 
     def forward(self, features, points, vert_uv, w2cs, Ks, *, height: int,
                 width: int, background=None, color_w=None, xyz_b=None,
-                color_b_map=None, opacity_b_map=None):
+                color_b_map=None, opacity_b_map=None,
+                edit: EditConfig = EditConfig()):
         """One sample; the model loops over its batch."""
         gs, uv = self.build_gaussians(features, points, vert_uv)
         gs = self.apply_appearance(gs, uv, color_w, xyz_b, color_b_map,
-                                   opacity_b_map)
+                                   opacity_b_map, edit)
         out = self.render_views(gs, w2cs, Ks, height, width, background)
         out["3dgs"] = gs
         return out

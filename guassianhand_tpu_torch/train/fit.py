@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -96,19 +96,23 @@ def attach_static_features(model: OneShotAvatarModel, batch: Dict) -> Dict:
 def make_fit_step(model: OneShotAvatarModel, vgg_loss_fn: Optional[Callable],
                   optimizer: torch.optim.Optimizer,
                   scheduler: Optional[torch.optim.lr_scheduler.LRScheduler],
-                  cfg: FitConfig = FitConfig(), *, height: int, width: int):
+                  cfg: FitConfig = FitConfig(), *, height: int, width: int,
+                  forward_kw: Optional[Dict[str, Any]] = None):
     """``step(batch) -> (loss, err)``: forward, loss, backward and, every
     ``cfg.accumulate_grad_batches`` calls, one Adam update and one schedule
     step. The batch holds target_rgb (B, H, W, 3) and target_mask (B, H, W)
-    for the input view (V = 1 while fitting). ``err`` has the JAX step's
+    for the input view (V = 1 while fitting). ``forward_kw`` goes to every
+    forward (the edit fit's ``edit`` and ``identity_from_book``; none of
+    them sits upstream of ``static_features``). ``err`` has the JAX step's
     keys: e_pix_l1, mask_loss, e_vgg (with a VGG loss), reg, overflow
     (always 0: the port bins every pair) and interaction_overflow (the
     interacting points ``interaction_cap`` left out)."""
     k = cfg.accumulate_grad_batches
     calls = [0]
+    forward_kw = forward_kw or {}
 
     def loss_fn(batch):
-        out = model(batch, height, width)
+        out = model(batch, height, width, **forward_kw)
         for key in ("comp_rgb", "comp_mask"):
             if out[key].dtype != torch.float32:
                 raise TypeError(f"the losses take float32 renders, "

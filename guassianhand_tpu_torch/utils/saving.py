@@ -1,12 +1,12 @@
-"""Frame export (counterpart of ``utils/saving.py``'s image and
-frame-sequence writers). PNGs are written with the standard library's
+"""Image, grid, frame-sequence and PLY export (counterpart of
+``utils/saving.py``). PNGs are written with the standard library's
 ``zlib``, so the port needs no imaging package."""
 from __future__ import annotations
 
 import os
 import struct
 import zlib
-from typing import Iterable
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -43,3 +43,42 @@ def save_image(path: str, img) -> str:
 def save_video_frames(dirname: str, frames: Iterable) -> list:
     return [save_image(os.path.join(dirname, f"{i:04d}.png"), f)
             for i, f in enumerate(frames)]
+
+
+def save_image_grid(path: str, imgs: Sequence, cols: Optional[int] = None
+                    ) -> str:
+    """Equal-sized images in a grid of ``cols`` columns (all in one row by
+    default), row by row."""
+    imgs = [to_uint8(i) for i in imgs]
+    h, w = imgs[0].shape[:2]
+    cols = cols or len(imgs)
+    rows = -(-len(imgs) // cols)
+    grid = np.zeros((rows * h, cols * w, 3), np.uint8)
+    for k, im in enumerate(imgs):
+        r, c = divmod(k, cols)
+        grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = im
+    return save_image(path, grid)
+
+
+class Saver:
+    """Writes a run's images and PLYs under one directory."""
+
+    def __init__(self, save_dir: str):
+        self.save_dir = save_dir
+        os.makedirs(save_dir, exist_ok=True)
+
+    def path(self, *parts: str) -> str:
+        p = os.path.join(self.save_dir, *parts)
+        os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+        return p
+
+    def save_rgb(self, name: str, img) -> str:
+        return save_image(self.path(name), img)
+
+    def save_grid(self, name: str, imgs, cols: Optional[int] = None) -> str:
+        return save_image_grid(self.path(name), imgs, cols)
+
+    def save_ply(self, name: str, gaussians) -> str:
+        p = self.path(name)
+        gaussians.to_ply(p)
+        return p

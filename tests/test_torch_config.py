@@ -1,8 +1,9 @@
 """The port's config loading against the JAX package's: every YAML file in
 ``configs/`` loads into the port, every key a file sets holds the JAX
 ``load_config``'s value for it, unknown keys still raise, and a config
-that asks for bf16 compute runs and reports it, and one that asks for the
-edit path is refused (exact comparisons: these are parsed values)."""
+that asks for bf16 compute runs and reports it, and the fit CLI says that
+it does not read an edit config's edit settings (exact comparisons: these
+are parsed values)."""
 import dataclasses
 import json
 from pathlib import Path
@@ -68,8 +69,10 @@ def test_bf16_and_edit_are_not_run_silently(tmp_path, capsys):
     """configs/one_shot.yaml builds a model whose feature pipeline computes
     in bf16 (its parameters float32), and the line the entry points print
     and the snapshot's compute_dtype_effective say bfloat16; without
-    compute_dtype both say float32. The fit CLI refuses the edit configs
-    before it builds or writes anything."""
+    compute_dtype both say float32. Given an edit config, the fit CLI says
+    that it does not read the edit settings (as in the JAX package, the
+    edit fit is cli/edit.py), and without --synthetic it refuses the
+    config's InterHand2.6M data before it builds or writes anything."""
     cfg = tconfig.load_config(str(CONFIGS[0].parent / "one_shot.yaml"))
     assert cfg.model.compute_dtype == "bfloat16"
     model = OneShotAvatarModel(dataclasses.replace(
@@ -88,7 +91,10 @@ def test_bf16_and_edit_are_not_run_silently(tmp_path, capsys):
     for name in ("one_shot_edit.yaml", "one_shot_avatar_drive.yaml"):
         with pytest.raises(SystemExit):
             fit_one_shot.main(["--config", str(CONFIGS[0].parent / name),
-                               "--synthetic", "--device", "cpu",
+                               "--device", "cpu",
                                f"out_dir={tmp_path / 'runs'}"])
-        assert "edit" in capsys.readouterr().err
+        said = capsys.readouterr()
+        assert "does not read the edit settings" in said.out
+        assert "cli.edit" in said.out
+        assert "InterHand2.6M" in said.err
     assert not (tmp_path / "runs").exists()

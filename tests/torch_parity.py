@@ -21,7 +21,8 @@ import torch
 from guassianhand_tpu.compat.torch_port import (merge_ported,
                                                 port_reference_checkpoint)
 
-from guassianhand_tpu_torch.compat.from_jax import load_jax_params
+from guassianhand_tpu_torch.compat.from_jax import (identity_code_infer_to_jax,
+                                                    load_jax_params)
 from guassianhand_tpu_torch.models.one_shot import OneShotConfig as TOneShotConfig
 from guassianhand_tpu_torch.ops.common import TILE
 from guassianhand_tpu_torch.ops.rasterize import RasterizeConfig as TRasterizeConfig
@@ -148,13 +149,20 @@ def jax_layout(model, shapes, backbone_layers: int = 1):
     """The port model's state_dict in the JAX params layout, through the
     JAX package's reference-checkpoint converter, over a zero tree of the
     JAX model's structure ``shapes``. Returns (params, converter
-    leftovers)."""
+    leftovers). The identity-code head, which the reference converter does
+    not know, is carried by ``identity_code_infer_to_jax``, and only where
+    ``shapes`` has it (a JAX model initialised with infer_identity=True)."""
+    head = "identity_code_infer"
     ported, unmapped = port_reference_checkpoint(
-        model.state_dict(), backbone_layers=backbone_layers)
+        {k: v for k, v in model.state_dict().items()
+         if not k.startswith(head + ".")}, backbone_layers=backbone_layers)
     # the converter emits an empty subtree for the point-cloud generator
     # that the one-shot model does not have
     ported = {k: v for k, v in ported.items() if not (isinstance(v, dict)
                                                       and not v)}
+    inner = shapes["params"] if "params" in shapes else shapes
+    if head in inner:
+        ported[head] = identity_code_infer_to_jax(model.identity_code_infer)
     zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     merged, skipped = merge_ported(zeros, ported)
     return to_numpy_tree(merged), unmapped + skipped
@@ -182,17 +190,21 @@ def environ(**values):
                 os.environ[k] = v
 
 
-def fit_against_jax(jcfg, tiny, hw: int, steps: int, port_env=None):
-    """``steps`` fit steps (one update each, vgg 0.1) of each package from
-    the same parameters on the same batch, at the JAX model config
-    ``jcfg`` (the port gets ``port_model_config(tiny)`` with ``jcfg``'s
-    raster switches); the port's steps run under the environment
-    ``port_env``. Both get the JAX package's batch (the points' last-ulp LBS
-    differences would otherwise flip a few points of the interaction mask,
-    ROADMAP.md Queue C) and the port's seeded init carried into the JAX
-    layout, with seeded noise on every leaf. Returns the parameters, the
-    losses and error terms of both, Adam's first moments after the first
-    step, the JAX parameters after the last and the port model."""
+def fit_against_jax(jcfg, tiny, hw: int, steps: int, port_env=None,
+                    forward_kw=None, lr: float = 0.01, vgg: float = 0.1):
+    """``steps`` fit steps (one update each, learning rate ``lr``, VGG
+    weight ``vgg``) of each package from the same parameters on the same
+    batch, at the JAX model config ``jcfg`` (the port gets
+    ``port_model_config(tiny)`` with ``jcfg``'s raster switches), each
+    forward with the options ``forward_kw`` (the edit fit's ``edit`` and
+    ``identity_from_book``, given as the port's ``EditConfig``); the port's
+    steps run under the environment ``port_env``. Both get the JAX
+    package's batch (the points' last-ulp LBS differences would otherwise
+    flip a few points of the interaction mask, ROADMAP.md Queue C) and the
+    port's seeded init carried into the JAX layout, with seeded noise on
+    every leaf. Returns the parameters, the losses and error terms of both,
+    Adam's first moments after the first step, the JAX parameters after the
+    last and the port model."""
     from guassianhand_tpu.data.synthetic import SyntheticHandScene as JScene
     from guassianhand_tpu.data.synthetic import synthetic_batch as j_batch
     from guassianhand_tpu.models.one_shot import OneShotAvatarModel as JModel
@@ -207,7 +219,13 @@ def fit_against_jax(jcfg, tiny, hw: int, steps: int, port_env=None):
                                                   make_optimizer)
     from guassianhand_tpu_torch.train.vgg import VGGLoss
 
-    fit_kw = dict(steps_per_epoch=1, epochs=steps)
+    from guassianhand_tpu.render.renderer import EditConfig as JEditConfig
+    fit_kw = dict(steps_per_epoch=1, epochs=steps, lr=lr)
+    forward_kw = dict(forward_kw or {})
+    j_forward_kw = dict(forward_kw)
+    if "edit" in forward_kw:
+        j_forward_kw["edit"] = JEditConfig(
+            **dataclasses.asdict(forward_kw["edit"]))
     jscene = JScene.build(n_vertices=96, subdivide=1, height=hw, width=hw)
     batch = {k: np.asarray(v) for k, v in jax.jit(lambda: j_batch(
         jscene, seed=0, raster=jcfg.renderer.raster))().items()}
@@ -228,12 +246,13 @@ def fit_against_jax(jcfg, tiny, hw: int, steps: int, port_env=None):
     # gradient elsewhere (seen with seed 22: 3 points' identity-code texels)
     params = perturb(params, 21)
 
-    jcfg_fit = jfit.FitConfig(weights=jlosses.LossWeights(vgg=0.1), **fit_kw)
+    jcfg_fit = jfit.FitConfig(weights=jlosses.LossWeights(vgg=vgg), **fit_kw)
     jparams = jax.tree.map(jnp.asarray, params)
     optimizer = jfit.make_optimizer(jparams, jcfg_fit)
     opt_state = optimizer.init(jparams)
-    step = jfit.make_fit_step(lambda p, b: jm.apply(p, b, hw, hw),
-                              jvgg.VGGLoss(), optimizer, jcfg_fit)
+    step = jfit.make_fit_step(
+        lambda p, b: jm.apply(p, b, hw, hw, **j_forward_kw),
+        jvgg.VGGLoss() if vgg else None, optimizer, jcfg_fit)
     jb = jfit.attach_static_features(jm, jparams,
                                      jax.tree.map(jnp.asarray, batch))
     j_losses, j_errs = [], []
@@ -247,10 +266,10 @@ def fit_against_jax(jcfg, tiny, hw: int, steps: int, port_env=None):
 
     model = OneShotAvatarModel(tcfg_model).eval()
     load_jax_params(model, params)
-    tcfg = FitConfig(weights=losses.LossWeights(vgg=0.1), **fit_kw)
+    tcfg = FitConfig(weights=losses.LossWeights(vgg=vgg), **fit_kw)
     opt, sched = make_optimizer(model, tcfg)
-    tstep = make_fit_step(model, VGGLoss(), opt, sched, tcfg, height=hw,
-                          width=hw)
+    tstep = make_fit_step(model, VGGLoss() if vgg else None, opt, sched, tcfg,
+                          height=hw, width=hw, forward_kw=forward_kw)
     t_losses, t_errs = [], []
     with environ(**(port_env or {})):
         tb = attach_static_features(model, batch_to_torch(batch))
