@@ -100,7 +100,19 @@ Phases, each reported on its own line:
      package's keys; cli/render_360.py --ckpt renders 8 views of it; SSIM
      and the seeded random-AlexNet LPIPS of one of its frames on the card
      and on the CPU agree within 1e-5;
- 12. reference: a small model rendered, and fitted for 2 steps, on the card
+ 12. InterHand2.6M: configs/one_shot.yaml with both switches on a fake
+     layout it writes (tests/torch_interhand_layout.py: 778-vertex
+     synthetic MANO pickles subdivided twice, 256^2 JPEGs): the seeded model's
+     reference-layout checkpoint through cli/port_checkpoint.py and the
+     partial loader (every tensor it carries back to the bit); 10 fit steps
+     as the fit CLI runs them, each launching each fit kernel and the bf16
+     K5's three once; the fit CLI for 2 steps and --run_val over
+     oneshot_reg_i's 14 frames, each launching K1, its plan, K4's forward
+     and the bf16 K5's forward once, with load_sample's stages timed;
+     cli/port_and_eval.py --dry_run (0, then 2 without the fit frame's
+     image) and end to end; load_sample on the card against the CPU; K1-K4
+     and the bf16 K5 against their twins at the InterHand fit's inputs;
+ 13. reference: a small model rendered, and fitted for 2 steps, on the card
      and on the CPU with the same weights must agree, with the switches off
      and on; and rendered with both switches under each edit flag with the
      codebook's identity 3 and seeded per-identity maps.
@@ -746,7 +758,13 @@ def check_gradients(label: str, inputs, reps: int = 20,
     rgb_p, t_p, nc_p, ck_p, sb_p, fwd_ops = rc.composite_plain(
         tr, gid, attrs, **kw, store_contrib=True, count_ops=True)
     bit_identical = bool(torch.equal(rgb_r, rgb_k) and torch.equal(t_r, t_k))
-    contrib_mismatch = int((nc_k != nc_p).sum())
+    mismatch = nc_k != nc_p
+    contrib_mismatch = int(mismatch.sum())
+    mismatch_pixels = [[int(i) for i in ij] + [int(nc_k[tuple(ij)]),
+                                               int(nc_p[tuple(ij)]),
+                                               float(t_k[tuple(ij)]),
+                                               float(t_p[tuple(ij)])]
+                       for ij in mismatch.nonzero()[:8].tolist()]
     plan_equal &= bool(torch.equal(sb_k, sb_p))
     ck_diff = (ck_k[:n_slots] - ck_p[:n_slots]).abs()
     ck_over = int((ck_diff > ATOL + RTOL * ck_p[:n_slots].abs()).sum())
@@ -857,6 +875,8 @@ def check_gradients(label: str, inputs, reps: int = 20,
            "n_pairs": n_pairs,
            "training_mode_bit_identical": bit_identical,
            "n_contrib_mismatch": contrib_mismatch,
+           # [y, x, n_contrib kernel, twin, final T kernel, twin]
+           "n_contrib_mismatch_pixels": mismatch_pixels,
            "n_contrib_max": int(nc_p.max()) if nc_p.numel() else 0,
            "checkpoints": n_slots, "checkpoints_over_tol": ck_over,
            "checkpoints_max_abs_err": float(ck_diff.max()) if n_slots else 0.0,
@@ -893,7 +913,7 @@ def check_gradients(label: str, inputs, reps: int = 20,
         bad.append("training mode changed rgb or final T")
     if contrib_mismatch:
         bad.append(f"n_contrib differs from the twin's at "
-                   f"{contrib_mismatch} pixels")
+                   f"{contrib_mismatch} pixels: {mismatch_pixels}")
     if ck_over:
         bad.append(f"{ck_over} checkpoint values over atol {ATOL} + rtol "
                    f"{RTOL}")
@@ -1770,14 +1790,11 @@ def phase_edit(info: dict, out_dir: str) -> dict:
     model with both kernel switches on, the fit scene (15,404 points,
     256^2), the codebook's identity 0 and the config's EditConfig, through
     the edit CLI's own step (cli/edit.py::make_edit_step: lr 0.001, no
-    VGG). One warm-up step, then EDIT_STEPS steps with the launch counts
-    zeroed just before and read just after: every step launches K1 in
-    training mode, its plan, K2, K3, K4 both ways and the bf16 K5's
-    forward, dkv and dq once each, and nothing else; the loss is finite and
-    falls below the warm-up's. Then ``cli/edit.py`` end to end for 2 steps
-    into ``out_dir``, which must write its first render and its checkpoint.
-    Returns the model, the launches, the rows and the CLI's run
-    directory."""
+    VGG); ``timed_steps`` over EDIT_STEPS steps (each launches each fit
+    kernel and the bf16 K5's three once, and the loss falls). Then
+    ``cli/edit.py`` end to end for 2 steps into ``out_dir``, which must
+    write its first render and its checkpoint. Returns the model, the
+    launches, the row and the CLI's run directory."""
     from guassianhand_tpu_torch.cli import edit as edit_cli
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                        synthetic_batch)
@@ -1790,45 +1807,13 @@ def phase_edit(info: dict, out_dir: str) -> dict:
     step, batch, _, _, _ = edit_cli.make_edit_step(
         model, synthetic_batch(scene, seed=0, with_target=True),
         edit_cli.edit_fit_config(1000), cfg.edit, 0, height=HW, width=HW)
-    want = FIT_KERNELS + FLASH_BF16
     with flash_switch(True):
-        warmup_loss = float(step(batch)[0])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_launches()
-        rows = []
-        for i in range(EDIT_STEPS):
-            counts = read_launches()
-            t = time.perf_counter()
-            loss, _ = step(batch)
-            torch.cuda.synchronize()
-            per = {k: v - counts[k] for k, v in read_launches().items()}
-            rows.append({"step": i, "ms": (time.perf_counter() - t) * 1e3,
-                         "loss": float(loss)})
-            off = {k: v for k, v in per.items() if v != int(k in want)}
-            if off:
-                raise AssertionError(f"edit step {i}: launches {off} where "
-                                     f"each of {want} launches once: {per}")
-        launches = read_launches()
-        peak = torch.cuda.max_memory_allocated()
-        busy_ms, top = device_profile(lambda: step(batch))
-    ms = [r["ms"] for r in rows]
-    losses = [r["loss"] for r in rows]
+        run = timed_steps("edit", step, batch, EDIT_STEPS)
     row = {"config": "configs/one_shot_edit.yaml", "route": "kernels",
            "edit": dataclasses.asdict(cfg.edit), "identity_from_book": 0,
-           "n_points": scene.n_points, "steps": EDIT_STEPS,
-           "ms_per_step": ms, "ms_per_step_mean": float(np.mean(ms)),
-           "device_busy_ms_profiled_step": busy_ms,
-           "device_busy_share": busy_ms / float(np.mean(ms)),
-           "peak_bytes": peak, "warmup_loss": warmup_loss, "losses": losses,
-           "launches": launches, "top_device_ms": top,
-           "card": info["nvidia_smi"]}
+           "n_points": scene.n_points, **run, "card": info["nvidia_smi"]}
     log("edit", **row)
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"the edit fit gave a non-finite loss: {losses}")
-    if not losses[-1] < warmup_loss:
-        raise AssertionError(f"the edit fit's loss did not fall: "
-                             f"{warmup_loss} then {losses}")
+    launches = run["launches"]
     t0 = time.perf_counter()
     with flash_switch(True):
         rc = edit_cli.main([
@@ -1844,6 +1829,47 @@ def phase_edit(info: dict, out_dir: str) -> dict:
         raise AssertionError(f"cli/edit.py: rc {rc}, wrote {wrote}")
     return {"model": model, "launches": launches, "row": row,
             "run_dir": run_dir}
+
+
+def timed_steps(label: str, step, batch, steps: int) -> dict:
+    """One warm-up step of ``step`` on ``batch`` (under the caller's flash
+    switch), then ``steps`` steps with the launch counts zeroed just before
+    and read just after: each step must launch K1 in training mode, its
+    plan, K2, K3, K4 both ways and the bf16 K5's three kernels once, and
+    nothing else, and the loss must be finite and fall below the warm-up's.
+    Returns the step times, losses, launches, peak bytes and one profiled
+    step's device busy time and top kernels."""
+    want = FIT_KERNELS + FLASH_BF16
+    warmup_loss = float(step(batch)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    ms, losses = [], []
+    for i in range(steps):
+        counts = read_launches()
+        t = time.perf_counter()
+        loss, _ = step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        per = {k: v - counts[k] for k, v in read_launches().items()}
+        off = {k: v for k, v in per.items() if v != int(k in want)}
+        if off:
+            raise AssertionError(f"{label} step {i}: launches {off} where "
+                                 f"each of {want} launches once: {per}")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    busy_ms, top = device_profile(lambda: step(batch))
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < warmup_loss:
+        raise AssertionError(f"{label}: the loss did not fall: "
+                             f"{warmup_loss} then {losses}")
+    return {"steps": steps, "ms_per_step": ms,
+            "ms_per_step_mean": float(np.mean(ms)),
+            "device_busy_ms_profiled_step": busy_ms,
+            "device_busy_share": busy_ms / float(np.mean(ms)),
+            "peak_bytes": peak, "warmup_loss": warmup_loss, "losses": losses,
+            "launches": launches, "top_device_ms": top}
 
 
 def phase_edit_reference() -> None:
@@ -1998,6 +2024,400 @@ def phase_eval(info: dict, edit: dict, out_dir: str) -> dict:
         raise AssertionError(f"ssim or LPIPS on the card and the CPU "
                              f"disagree: {row}")
     return {"launches": launches, "row": row}
+
+
+IH_TEST_FRAMES = 14   # data.pose_sequence=oneshot_reg_i's length
+IH_FLIP_SHARE = 0.02  # card vs CPU: the interaction mask's flips at most
+
+
+def interhand_layout():
+    """tests/torch_interhand_layout.py (the fake layout's writer and the
+    reference checkpoint's helpers), loaded from its file: another package
+    named ``tests`` may stand before the repo's on the path."""
+    import importlib.util
+    path = REPO / "tests" / "torch_interhand_layout.py"
+    spec = importlib.util.spec_from_file_location("torch_interhand_layout",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_quiet(fn, *args) -> tuple:
+    """(fn(*args), what it printed): the printout is kept, not shown."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def phase_interhand_checkpoint(cfg, root: Path) -> tuple:
+    """A reference-layout checkpoint of the seeded full-width model of
+    ``cfg`` (seed 0, every tensor with seeded noise of 1e-3:
+    ``interhand_layout().add_noise``)
+    through cli/port_checkpoint.py: its unmapped keys must be exactly the
+    point-cloud generator's; loaded by ``pretrained:``'s loader into a
+    model of seed 1, every tensor it carries must equal the seed-0 model's
+    to the bit, the missing ones be only the identity-code head, and
+    ``restored N/M`` count the tensors the converter mapped. Returns the
+    reference checkpoint and the ported one."""
+    from guassianhand_tpu_torch.cli import port_checkpoint
+    from guassianhand_tpu_torch.models.one_shot import build_model
+    from guassianhand_tpu_torch.train.checkpoints import load_params_partial
+    t0 = time.perf_counter()
+    # noise small enough to leave the Gaussians as the seeded model makes
+    # them (0.05 on the heads' biases blows every splat up 30-fold in pairs)
+    helpers = interhand_layout()
+    source = helpers.add_noise(
+        build_model(cfg.model, seed=0, device="cuda"), 0, scale=1e-3)
+    ref = helpers.reference_state_dict(source)
+    src, out = root / "pretrain_model.ckpt", root / "pretrain_model.port.ckpt"
+    torch.save({"state_dict": ref}, src)
+    rc, said = run_quiet(port_checkpoint.main, [
+        "--torch_ckpt", str(src), "--out", str(out)])
+    unmapped = sorted(line.strip() for line in said.splitlines()
+                      if line.startswith("  "))
+    generator = sorted(k.removeprefix("model.") for k in ref
+                       if k.startswith("model.pointcloud_generator."))
+    n_ported = len(ref) - len(generator)
+    target = build_model(cfg.model, seed=1, device="cuda")
+    got, loaded = run_quiet(load_params_partial, str(out), target)
+    own = target.state_dict()
+    want = source.state_dict()
+    unequal = [k for k in got["restored"] if not torch.equal(own[k], want[k])]
+    bad_missing = [k for k in got["missing"]
+                   if not k.startswith("identity_code_infer.")]
+    log("interhand_checkpoint", seconds=time.perf_counter() - t0,
+        source_bytes=src.stat().st_size, ported_bytes=out.stat().st_size,
+        source_keys=len(ref), ported=n_ported, unmapped=len(unmapped),
+        restored_line=loaded.strip(), missing=got["missing"],
+        unequal=unequal)
+    if rc != 0 or unmapped != generator:
+        raise AssertionError(f"cli/port_checkpoint.py: rc {rc}, unmapped "
+                             f"{unmapped}, not {generator}")
+    if f"restored {n_ported}/{len(own)} " not in loaded or unequal \
+            or bad_missing:
+        raise AssertionError(f"pretrained load: {loaded!r}, unequal "
+                             f"{unequal}, missing {got['missing']}")
+    return src, out
+
+
+def phase_interhand_fit(cfg, ported: Path, info: dict) -> dict:
+    """The fit cli/fit_one_shot.py runs on InterHand2.6M, from its own
+    pieces: the train split's one-shot frame, the seeded model with the
+    ported checkpoint over it, the config's FitConfig (no VGG: no VGG19
+    weights, as the CLI runs without them), the static prefix cache where
+    the config asks for it; ``timed_steps`` over FIT_STEPS steps, for the
+    step's time and device share (the CLI times no step; its launches are
+    checked in phase_interhand_cli). Returns the launches and the kernels'
+    inputs at the fitted model."""
+    from guassianhand_tpu_torch.cli.fit_one_shot import interhand_dataset
+    from guassianhand_tpu_torch.models.one_shot import build_model
+    from guassianhand_tpu_torch.train.checkpoints import load_params_partial
+    from guassianhand_tpu_torch.train.fit import (attach_static_features,
+                                                  make_fit_step,
+                                                  make_optimizer)
+    t0 = time.perf_counter()
+    dataset = interhand_dataset(cfg, "train", "cuda", HW, HW)
+    t1 = time.perf_counter()
+    batch = dataset.load_sample(0)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t1) * 1e3
+    model = build_model(cfg.model, seed=cfg.seed, device="cuda")
+    run_quiet(load_params_partial, str(ported), model)
+    optimizer, scheduler = make_optimizer(model, cfg.fit)
+    step = make_fit_step(model, None, optimizer, scheduler, cfg.fit,
+                         height=HW, width=HW)
+    if cfg.fit.static_prefix_cache:
+        batch = attach_static_features(model, batch)
+    with flash_switch(True):
+        run = timed_steps("InterHand fit", step, batch, FIT_STEPS)
+        captured = kernel_inputs(model, batch)
+    mask = captured["attention"][3]
+    row = {"config": "configs/one_shot.yaml", "route": "kernels",
+           "decoder": dataset.decoder, "setup_s": t1 - t0,
+           "load_sample_ms": load_ms,
+           "n_points": int(batch["points"].shape[1]),
+           "gaussian_slots": 2 * int(batch["points"].shape[1]),
+           "live_rows_k5": int(mask.sum()), "pairs": captured["n_pairs"],
+           "target_mask_mean": float(batch["target_mask"].mean()),
+           **run, "card": info["nvidia_smi"]}
+    log("interhand_fit", **row)
+    return {"launches": run["launches"], "row": row, **captured}
+
+
+def load_sample_stages(dataset, indices) -> dict:
+    """The mean ms a frame of load_sample's stages over ``indices``, each
+    run as load_sample runs it and synchronised after: the index and
+    annotation pickles, the images (decode, masks, hole filling), the MANO
+    parameters, LBS and subdivision of both hands in the frame's pose and
+    in the T-pose, the kNN interaction mask, and the box mask on the host
+    (``get_mask_at_box``)."""
+    import pickle
+    from guassianhand_tpu_torch.data.rays import (bounds_from_points,
+                                                  get_mask_at_box)
+    from guassianhand_tpu_torch.ops.knn import interaction_mask
+    totals = dict.fromkeys(("pickles", "images", "mano_params", "posing",
+                            "knn_mask", "box_mask"), 0.0)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        totals[name] += (time.perf_counter() - t) * 1e3
+        return out
+
+    base = Path(dataset.cfg.data_root) / dataset.cfg.mode / "annotation"
+    for i in indices:
+        rec = timed("pickles", lambda: dataset._index_record(i))
+        c, f, cam = rec["capture"], rec["frame"], rec["cam"]
+        anno = timed("pickles", lambda: pickle.loads((
+            base / f"capture{c}/cam{cam}/frame{f}.pkl").read_bytes()))
+        img, _, _ = timed("images", lambda: dataset._load_images(c, cam, f))
+        mp, mp_t = timed("mano_params", lambda: (
+            dataset._mano_params(c, f), dataset._mano_params(c, f, True)))
+        points, points_t = timed("posing", lambda: (
+            dataset.pose_sample(mp), dataset.pose_sample(mp_t)))
+        timed("knn_mask", lambda: interaction_mask(points, points_t))
+        cam_ = anno["camera"]
+        timed("box_mask", lambda: get_mask_at_box(
+            bounds_from_points(points.cpu().numpy()),
+            np.asarray(cam_["in_K"], np.float32).reshape(3, 3),
+            np.asarray(cam_["R"], np.float32).reshape(3, 3),
+            np.asarray(cam_["t"], np.float32).reshape(3), *img.shape[:2]))
+    return {k: v / len(indices) for k, v in totals.items()}
+
+
+def phase_interhand_cli(layout: dict, src: Path, ported: Path, out_dir: str,
+                        info: dict) -> dict:
+    """cli/fit_one_shot.py on the layout with configs/one_shot.yaml, the
+    ported checkpoint and both switches: a fit of FIT_STEPS steps with the
+    launch counts zeroed just before and read just after (each step
+    launches each fit kernel and the bf16 K5's three once, each forward
+    the CLI renders besides, ``cli_fit_forwards``, K1, its plan, K4's
+    forward and the bf16 K5's forward once, and nothing else launches;
+    its PLY, checkpoint and first PNG written, its logged loss falling),
+    then --run_val over
+    oneshot_reg_i's
+    IH_TEST_FRAMES frames with the launch counts zeroed just before and
+    read just after (a frame launches K1 in render mode, its plan, K4's
+    forward and the bf16 K5's forward once each: its target is a decoded
+    image, not a render) and test_metrics.yml with JAX's keys. The frame's
+    time beside the share of it that load_sample takes and the model call
+    alone. Then cli/port_and_eval.py: --dry_run exits 0 on the layout and
+    2 with the fit frame's image removed, and its three stages run end to
+    end for 2 steps."""
+    import yaml
+    from guassianhand_tpu_torch.cli import fit_one_shot, port_and_eval
+    from guassianhand_tpu_torch.config import load_config
+    from guassianhand_tpu_torch.models.one_shot import build_model, no_tf32
+    from guassianhand_tpu_torch.train.checkpoints import load_checkpoint
+    cfg_path = str(REPO / "configs" / "one_shot.yaml")
+    data = [f"data.data_root={layout['data_root']}",
+            f"data.annot_path={layout['annot_path']}",
+            f"data.mano_models_path={layout['mano']}",
+            "data.pose_sequence=oneshot_reg_i",
+            "model.renderer.raster.projection_impl=pallas"]
+    args = ["--config", cfg_path, f"out_dir={out_dir}", "expname=ih",
+            f"pretrained={ported}"] + data
+    zero_launches()
+    t0 = time.perf_counter()
+    with flash_switch(True):
+        rc = fit_one_shot.main(args + ["--steps", str(FIT_STEPS)])
+    fit_s = time.perf_counter() - t0
+    fit_launches = read_launches()
+    run_dir = Path(out_dir) / "ih"
+    wrote = {name: (run_dir / name).exists()
+             for name in ("3dgs/fitted.ply", "ckpts/last.ckpt",
+                          "vis/step0000_pred.png")}
+    if rc != 0 or not all(wrote.values()):
+        raise AssertionError(f"the InterHand fit CLI: rc {rc}, {wrote}")
+    forwards = cli_fit_forwards(FIT_STEPS)
+    want = {k: FIT_STEPS + forwards * (k in SERVE_FLAGSHIP)
+            for k in FIT_KERNELS + FLASH_BF16}
+    off = {k: v for k, v in fit_launches.items() if v != want.get(k, 0)}
+    if off:
+        raise AssertionError(f"the InterHand fit CLI launched {off}, not "
+                             f"{want}: {fit_launches}")
+    fit_losses = [json.loads(line)["loss"] for line in
+                  (run_dir / "metrics.jsonl").read_text().splitlines()]
+    if not (len(fit_losses) > 1 and math.isfinite(fit_losses[-1])
+            and fit_losses[-1] < fit_losses[0]):
+        raise AssertionError(f"the InterHand fit CLI's loss did not fall: "
+                             f"{fit_losses}")
+    zero_launches()
+    t1 = time.perf_counter()
+    with flash_switch(True):
+        rc = fit_one_shot.main(args + ["--run_val", "--no_images"])
+    eval_s = time.perf_counter() - t1
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"--run_val on InterHand2.6M: rc {rc}")
+    want = {k: IH_TEST_FRAMES for k in SERVE_FLAGSHIP}
+    off = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+    if off:
+        raise AssertionError(f"the InterHand evaluation launched {off}, not "
+                             f"{want}: {launches}")
+    scores = yaml.safe_load((run_dir / "test_metrics.yml").read_text())
+    missing = [k for k in EVAL_KEYS + ("eval_wall_s",) if k not in scores]
+    if missing or "lpips" in scores \
+            or scores["eval_frames"] != IH_TEST_FRAMES \
+            or not all(math.isfinite(scores[k]) for k in ("psnr", "ssim",
+                                                          "mse")):
+        raise AssertionError(f"test_metrics.yml: missing {missing}: {scores}")
+
+    # a frame's parts: load_sample alone (and its stages), the model call
+    cfg = load_config(cfg_path, data)
+    dataset = fit_one_shot.interhand_dataset(cfg, "test", "cuda", HW, HW)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    frames = [dataset.load_sample(i) for i in range(len(dataset))]
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t2) * 1e3 / len(frames)
+    stages = load_sample_stages(dataset, range(1, len(dataset)))
+    model = build_model(cfg.model, seed=cfg.seed, device="cuda")
+    load_checkpoint(str(run_dir / "ckpts" / "last.ckpt"), model)
+    with flash_switch(True), torch.inference_mode(), no_tf32():
+        model(frames[1], HW, HW)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for b in frames[1:4]:
+            model(b, HW, HW)
+        torch.cuda.synchronize()
+        model_ms = (time.perf_counter() - t3) * 1e3 / 3
+    ms_per_frame = 1e3 / scores["eval_frames_per_s"]
+    row = {"config": "configs/one_shot.yaml", "route": "kernels",
+           "fit_cli_s": fit_s, "fit_cli_steps": FIT_STEPS,
+           "fit_cli_launches": fit_launches, "fit_cli_losses": fit_losses,
+           "eval_cli_s": eval_s,
+           "frames": IH_TEST_FRAMES, "ms_per_frame": ms_per_frame,
+           "model_ms_per_frame": model_ms, "load_sample_ms": load_ms,
+           "load_sample_share": load_ms / ms_per_frame,
+           "load_sample_stages_ms": stages,
+           "live_rows_by_frame": [int(b["inter_mask"].sum()) for b in frames],
+           "metrics": scores, "launches": launches,
+           "card": info["nvidia_smi"]}
+    log("interhand_eval", **row)
+    del model, frames
+
+    # cli/port_and_eval.py: the checklist, then the three stages
+    pae = ["--torch_ckpt", str(src), "--data_root", layout["data_root"],
+           "--annot_path", layout["annot_path"], "--mano", layout["mano"]]
+    dry = []
+    rc, said = run_quiet(port_and_eval.main, pae + ["--dry_run"])
+    dry.append(rc)
+    image = next(Path(layout["data_root"], "test", "image").rglob(
+        "frame0.jpg"))
+    saved = image.read_bytes()
+    image.unlink()
+    try:
+        rc, said_gap = run_quiet(port_and_eval.main, pae + ["--dry_run"])
+        dry.append(rc)
+    finally:
+        image.write_bytes(saved)
+    log("interhand_port_and_eval_dry_run", rcs=dry,
+        names_the_gap=str(image) in said_gap)
+    if dry != [0, 2] or str(image) not in said_gap:
+        raise AssertionError(f"port_and_eval --dry_run: rcs {dry}:\n{said}"
+                             f"\n{said_gap}")
+    t4 = time.perf_counter()
+    with flash_switch(True):
+        rc, said = run_quiet(port_and_eval.main, pae + [
+            "--out", str(ported), "--steps", "2", "--expname", "ih_pae",
+            "--config", cfg_path, "--no_images", f"out_dir={out_dir}",
+            "data.pose_sequence=oneshot_reg_i",
+            "model.renderer.raster.projection_impl=pallas"])
+    pae_metrics = Path(out_dir) / "ih_pae" / "test_metrics.yml"
+    log("interhand_port_and_eval", rc=rc, seconds=time.perf_counter() - t4,
+        skipped_port="up to date, skipping" in said,
+        wrote=pae_metrics.is_file())
+    if rc != 0 or not pae_metrics.is_file():
+        raise AssertionError(f"port_and_eval: rc {rc}:\n{said[-3000:]}")
+    return {"fit_launches": fit_launches, "launches": launches, "row": row}
+
+
+def cli_fit_forwards(steps: int) -> int:
+    """The forwards cli/fit_one_shot.py's fit of ``steps`` steps renders
+    besides its steps: one for the PNGs at every 10th step and the last,
+    and one for the fitted PLY."""
+    return len({i for i in range(steps) if i % 10 == 0 or i == steps - 1}) + 1
+
+
+def phase_interhand_card_vs_cpu(root: Path) -> None:
+    """One load_sample of a small layout (64-vertex MANO, 64^2, subdivided
+    once) on the card and on the CPU: images, masks, bbox_mask and the
+    cameras equal to the bit, points within 1e-5, the interaction mask
+    within IH_FLIP_SHARE flips."""
+    from guassianhand_tpu_torch.data.interhand import (InterHandConfig,
+                                                       InterHandDataset)
+    layout = interhand_layout().write_interhand_layout(
+        root / "small", n_vertices=64, hw=64, test_frames=2)
+    cfg = InterHandConfig(data_root=layout["data_root"],
+                          annot_path=layout["annot_path"],
+                          mano_models_path=layout["mano"], edge_subdivide=1,
+                          split="test", pose_sequence="oneshot_reg_i")
+    got = {dev: InterHandDataset(cfg, device=dev).load_sample(1)
+           for dev in ("cuda", "cpu")}
+    card, host = got["cuda"], got["cpu"]
+    exact = {k: bool(np.array_equal(np.asarray(card[k].cpu()
+                                               if torch.is_tensor(card[k])
+                                               else card[k]),
+                                    np.asarray(host[k])))
+             for k in ("target_rgb", "target_mask", "bbox_mask",
+                       "mask_at_box", "c2w", "K_render", "w2c_render",
+                       "vert_uv", "mano_pose")}
+    points = float((card["points"].cpu() - host["points"]).abs().max())
+    flips = float((card["inter_mask"].cpu() != host["inter_mask"])
+                  .float().mean())
+    log("interhand_card_vs_cpu", exact=exact, points_max_abs=points,
+        inter_mask_flip_share=flips,
+        interacting=int(host["inter_mask"].sum()),
+        n_points=int(host["points"].shape[1]))
+    if not all(exact.values()) or points > 1e-5 or flips > IH_FLIP_SHARE:
+        raise AssertionError(f"load_sample on the card and the CPU "
+                             f"disagree: {exact}, points {points}, flips "
+                             f"{flips}")
+
+
+def phase_interhand(info: dict, out_dir: str) -> dict:
+    """The flagship config (configs/one_shot.yaml, both switches) on an
+    InterHand2.6M layout at full width (tests/torch_interhand_layout.py::
+    write_interhand_layout: 778-vertex
+    hands subdivided twice, 15,404 points, 256^2): the reference
+    checkpoint ported and loaded (phase_interhand_checkpoint), 10 timed fit
+    steps (phase_interhand_fit), the CLIs (phase_interhand_cli), the
+    card against the CPU (phase_interhand_card_vs_cpu), and K1-K4 and the
+    bf16 K5 against their twins at the fit's own inputs. Returns the fit
+    CLI's and the evaluation CLI's launches and the kernels' rows."""
+    from guassianhand_tpu_torch.config import load_config
+    root = Path(out_dir) / "interhand"
+    t0 = time.perf_counter()
+    layout = interhand_layout().write_interhand_layout(
+        root / "layout", hw=HW, test_frames=IH_TEST_FRAMES)
+    log("interhand_layout", seconds=time.perf_counter() - t0, **layout)
+    cfg = load_config(str(REPO / "configs" / "one_shot.yaml"), [
+        f"data.data_root={layout['data_root']}",
+        f"data.annot_path={layout['annot_path']}",
+        f"data.mano_models_path={layout['mano']}",
+        "model.renderer.raster.projection_impl=pallas"])
+    if cfg.model != kernel_config(flagship_config(), True):
+        raise AssertionError("configs/one_shot.yaml's model changed")
+    src, ported = phase_interhand_checkpoint(cfg, root)
+    fit = phase_interhand_fit(cfg, ported, info)
+    evaluation = phase_interhand_cli(layout, src, ported, out_dir, info)
+    phase_interhand_card_vs_cpu(root)
+    gs = fit["gaussians"]
+    rows = {"composite": check_composite("interhand_fit", fit["inputs"]),
+            "gradients": check_gradients("interhand_fit", fit["inputs"]),
+            "projection": check_projection(
+                "interhand_fit", gs.xyz.contiguous(), gs.scaling.contiguous(),
+                gs.rotation.contiguous(), fit["camera"]),
+            "attention_bf16": check_attention_bf16(
+                "interhand_fit", *fit["attention"])}
+    return {"fit_launches": evaluation["fit_launches"],
+            "eval_launches": evaluation["launches"], "rows": rows}
 
 
 def phase_raster_fwd_bwd(parent=None) -> dict:
@@ -2327,12 +2747,8 @@ def phase_fit(kernels: bool = False, model_cfg=None, route: str = None,
     unless given), ``want`` the kernels the steps must launch (all others
     must not launch)."""
     from guassianhand_tpu_torch.cli.render_360 import MODEL_CONFIG
-    from guassianhand_tpu_torch.core.camera import Camera
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                        synthetic_batch)
-    from guassianhand_tpu_torch.models.one_shot import no_tf32
-    from guassianhand_tpu_torch.nn import heads
-    from guassianhand_tpu_torch.ops.rasterize import multiview_composite_inputs
     from guassianhand_tpu_torch.train.fit import trainable_mask
     route = route or ("kernels" if kernels else "default")
     cfg = kernel_config(model_cfg or MODEL_CONFIG, kernels)
@@ -2398,31 +2814,45 @@ def phase_fit(kernels: bool = False, model_cfg=None, route: str = None,
                                  f"{sorted(want_moved - set(moved))}")
         check_launches(f"the fit ({route})", launches, want or (
             FIT_KERNELS + FLASH_FP32 if kernels else DEFAULT_ROUTE))
-        # one more forward, with the interaction attention's inputs kept
-        captured = []
-        attend = heads.blockwise_attention
+        captured = kernel_inputs(model, batch)
+    return {"launches": launches, "rows": rows, "warmup_loss": warmup_loss,
+            "peak_bytes": peak, "busy_ms": busy_ms,
+            "busy_share": busy_ms / float(np.mean(ms)), **captured}
 
-        def keep(q, k, v, mask=None, **kw):
-            captured.append((q.detach().contiguous(), k.detach().contiguous(),
-                             v.detach().contiguous(), mask))
-            return attend(q, k, v, mask, **kw)
 
-        heads.blockwise_attention = keep
-        try:
-            with torch.no_grad(), no_tf32():
-                gs = model(batch, HW, HW)["3dgs"][0]
-        finally:
-            heads.blockwise_attention = attend
-    rcfg = cfg.renderer
+def kernel_inputs(model, batch) -> dict:
+    """One more forward of the fitted ``model`` on ``batch`` (under the
+    caller's flash switch) with the interaction attention's inputs kept:
+    the kernels' inputs at this batch. Returns the composite inputs in the
+    batch's view, the Gaussians, the camera, the attention's q, k, v and
+    mask, and the forward's pair count."""
+    from guassianhand_tpu_torch.core.camera import Camera
+    from guassianhand_tpu_torch.models.one_shot import no_tf32
+    from guassianhand_tpu_torch.nn import heads
+    from guassianhand_tpu_torch.ops.rasterize import multiview_composite_inputs
+    captured = []
+    attend = heads.blockwise_attention
+
+    def keep(q, k, v, mask=None, **kw):
+        captured.append((q.detach().contiguous(), k.detach().contiguous(),
+                         v.detach().contiguous(), mask))
+        return attend(q, k, v, mask, **kw)
+
+    heads.blockwise_attention = keep
+    try:
+        with torch.no_grad(), no_tf32():
+            out = model(batch, HW, HW)
+    finally:
+        heads.blockwise_attention = attend
+    gs = out["3dgs"][0]
+    rcfg = model.cfg.renderer
     w2c, K = batch["w2c_render"][0], batch["K_render"][0]
     inputs = multiview_composite_inputs(
         gs, w2c, K, height=HW, width=HW, sh_degree=rcfg.sh_degree,
         use_rgb=rcfg.use_rgb, config=rcfg.raster)
-    return {"inputs": inputs, "launches": launches, "rows": rows,
-            "warmup_loss": warmup_loss, "gaussians": gs, "peak_bytes": peak,
-            "busy_ms": busy_ms, "busy_share": busy_ms / float(np.mean(ms)),
+    return {"inputs": inputs, "gaussians": gs,
             "camera": Camera.from_w2c(w2c[0], K[0], HW, HW, device="cuda"),
-            "attention": captured[0]}
+            "attention": captured[0], "n_pairs": int(out["n_pairs"][0])}
 
 
 def phase_fit_routes() -> tuple:
@@ -2670,8 +3100,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         edit = phase_edit(info, out_dir)
         evaluation = phase_eval(info, edit, out_dir)
-    edit_launches, eval_launches = edit["launches"], evaluation["launches"]
-    del edit
+        edit_launches, eval_launches = edit["launches"], evaluation["launches"]
+        del edit
+        interhand = phase_interhand(info, out_dir)
+    ih_fit, ih_eval = interhand["fit_launches"], interhand["eval_launches"]
+    ih_rows = interhand["rows"]
     phase_edit_reference()
     for kernels in (False, True):
         phase_reference(kernels)
@@ -2686,7 +3119,9 @@ def main(argv=None) -> int:
                 "fit": fit_launches[name],
                 "fit_with_switches": kfit_launches[name],
                 "fit_edit_flagship_bf16": edit_launches[name],
-                "eval_flagship_bf16": eval_launches[name]}
+                "eval_flagship_bf16": eval_launches[name],
+                "fit_interhand_flagship_bf16": ih_fit[name],
+                "eval_interhand_flagship_bf16": ih_eval[name]}
 
     flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     flash_via = "via guassianhand_tpu/ops/blockwise_attention.py:40"
@@ -2858,7 +3293,9 @@ def main(argv=None) -> int:
                 "fit_flagship_bf16": bf16_launches[f"{name}_bf16"],
                 "serve_flagship_bf16": flagship_serve[f"{name}_bf16"],
                 "fit_edit_flagship_bf16": edit_launches[f"{name}_bf16"],
-                "eval_flagship_bf16": eval_launches[f"{name}_bf16"]},
+                "eval_flagship_bf16": eval_launches[f"{name}_bf16"],
+                "fit_interhand_flagship_bf16": ih_fit[f"{name}_bf16"],
+                "eval_interhand_flagship_bf16": ih_eval[f"{name}_bf16"]},
             "max_abs_err": max(attn16[f"{e}_max_abs_err"] for e in err),
             "max_ulps": max(attn16[f"{e}_max_ulps"] for e in err),
             "ms": attn16[f"{key}_ms"], "plain_ms": attn16[plain],
@@ -2872,6 +3309,40 @@ def main(argv=None) -> int:
             "sdpa_masked_fwd_bwd_ms": attn16["sdpa_fwd_bwd_ms"],
             "sdpa_gathered_fwd_bwd_ms": attn16["sdpa_gathered_fwd_bwd_ms"],
             "live_rows": attn16["live"]})
+    comp, grad = ih_rows["composite"], ih_rows["gradients"]
+    proj, att = ih_rows["projection"], ih_rows["attention_bf16"]
+    at_interhand = {
+        "composite_forward": {
+            "ms": comp["ms"], "train_ms": grad["k1_train_ms"],
+            "bound_ms": comp["bound_ms"],
+            "max_abs_err": max(comp["max_abs_err_rgb"],
+                               comp["max_abs_err_final_t"])},
+        "composite_plan": {"ms": grad["plan_ms"],
+                           "equal": grad["plan_equal"]},
+        "composite_backward": {
+            "ms": grad["k2_ms"], "bound_ms": grad["k2_bound_ms"],
+            "max_abs_err": grad["pair_rows_max_abs_err"]},
+        "segment_reduce_sorted": {
+            "ms": grad["k3_ms"], "bound_ms": grad["k3_bound_ms"],
+            "max_abs_err": grad_err(grad, "segment_reduce")},
+        "project_forward": {
+            "ms": proj["fwd_ms"], "bound_ms": proj["fwd_bound"]["bound_ms"],
+            "max_abs_err": max(proj[f"{k}_max_abs_err"]
+                               for k in ("mean2d", "depth", "conic"))},
+        "project_backward": {
+            "ms": proj["bwd_ms"], "bound_ms": proj["bwd_bound"]["bound_ms"],
+            "max_abs_err": max(proj[f"grad_{k}_max_abs_err"]
+                               for k in ("xyz", "scaling", "rotation"))}}
+    for name, err in (("flash_forward", ("out",)),
+                      ("flash_backward_dkv", ("dk", "dv")),
+                      ("flash_backward_dq", ("dq",))):
+        at_interhand[f"{name}_bf16"] = {
+            "live_rows": att["live"],
+            "max_abs_err": max(att[f"{e}_max_abs_err"] for e in err),
+            "max_ulps": max(att[f"{e}_max_ulps"] for e in err)}
+    for k in kernels:
+        if k["name"] in at_interhand:
+            k["at_interhand_fit"] = at_interhand[k["name"]]
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel timing failed")
     print(json.dumps({"kernels": kernels}))

@@ -1,31 +1,44 @@
 """One-shot avatar fitting and evaluation CLI (counterpart of
-``cli/fit_one_shot.py``, on the synthetic two-hand scene).
+``cli/fit_one_shot.py``).
 
-  python -m guassianhand_tpu_torch.cli.fit_one_shot --synthetic \\
-      [--run_val [--val_frames N] [--no_images]] [--steps N] [--height H]
-      [--width W] [--device cpu] [--config cfg.yaml] [key.sub=value ...]
+  python -m guassianhand_tpu_torch.cli.fit_one_shot [--config cfg.yaml]
+      [--synthetic] [--run_val [--val_frames N] [--no_images]] [--steps N]
+      [--height H] [--width W] [--device cpu] [key.sub=value ...]
 
-Builds the scene and its target image and a model with seeded weights (or
-the ``pretrained`` checkpoint). A fit trains the per-identity parameters:
-it resumes from the run's latest checkpoint, logs metrics to
+The data is the synthetic two-hand scene with ``--synthetic`` or
+``data.dataset: synthetic`` (the default), else InterHand2.6M
+(``data/interhand.py``, from ``data.data_root``, ``data.annot_path`` and
+the MANO pickles of ``data.mano_models_path``). The model has seeded
+weights, over which the ``pretrained`` checkpoint is loaded where it is
+given (strict=False: ``train/checkpoints.load_params_partial``).
+
+A fit trains the per-identity parameters on one frame (the synthetic
+scene's target, or InterHand2.6M's one-shot frame of the train split): it
+resumes from the run's latest checkpoint, logs metrics to
 ``metrics.jsonl``, writes prediction/target PNGs every 10 steps under
 ``vis/``, a checkpoint at the end and the fitted Gaussians as
-``3dgs/fitted.ply``. ``--run_val`` evaluates the run's latest checkpoint
-instead (the seeded weights where there is none): PSNR, MSE and SSIM
-(on the bounding box of the frame's ``mask_at_box`` when ``--val_frames``
-> 1, each frame a pose of its own seed), LPIPS only with real AlexNet
-weights (``lpips_weights`` or ``$GH_LPIPS_WEIGHTS``), and their means with
-the frame count, throughput, the card's peak bytes and the weights'
-provenance in ``test_metrics.yml``; per-frame PNGs under ``images/``
-unless ``--no_images``. Everything goes under ``<out_dir>/<expname>``.
-Runs on ``cuda`` unless ``--device cpu``.
+``3dgs/fitted.ply``.
 
-The InterHand2.6M data path is not ported and is refused. As in the JAX
-package this CLI does not read the ``edit`` section: an edit config fits
-(or evaluates) as any other, and the edit fit is ``cli/edit.py``.
-``model.compute_dtype`` takes effect (``configs/one_shot.yaml`` fits with
-a bf16 feature pipeline); the run prints the type the model computes in,
-and its config snapshot records it as ``compute_dtype_effective``.
+``--run_val`` evaluates the run's latest checkpoint instead (the seeded or
+pretrained weights where there is none): on InterHand2.6M over every frame
+of the test split's ``data.pose_sequence`` (14 for ``oneshot_reg_i``),
+the prediction masked by the frame's ``bbox_mask``; on the synthetic scene
+over ``--val_frames`` frames, each a pose of its own seed. It scores PSNR,
+MSE and SSIM (on the bounding box of the frame's ``mask_at_box`` where the
+frame has one), LPIPS only with real AlexNet weights (``lpips_weights`` or
+``$GH_LPIPS_WEIGHTS``), and writes their means with the frame count,
+throughput, the card's peak bytes and the weights' provenance to
+``test_metrics.yml``; per-frame PNGs under ``images/`` unless
+``--no_images``. Everything goes under ``<out_dir>/<expname>``. Runs on
+``cuda`` unless ``--device cpu``.
+
+As in the JAX package this CLI does not read the ``edit`` section: an edit
+config fits (or evaluates) as any other, with ``data.edit``,
+``data.image_path`` and ``data.mask_path`` choosing InterHand2.6M's edit
+frame and target; the edit fit is ``cli/edit.py``. ``model.compute_dtype``
+takes effect (``configs/one_shot.yaml`` fits with a bf16 feature
+pipeline); the run prints the type the model computes in, and its config
+snapshot records it as ``compute_dtype_effective``.
 """
 from __future__ import annotations
 
@@ -41,6 +54,8 @@ import torch
 
 from guassianhand_tpu_torch.config import (compute_dtype_line, load_config,
                                            save_config_snapshot)
+from guassianhand_tpu_torch.data.interhand import (InterHandConfig,
+                                                   InterHandDataset)
 from guassianhand_tpu_torch.data.rays import (bounds_from_points,
                                               get_mask_at_box)
 from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
@@ -54,6 +69,22 @@ from guassianhand_tpu_torch.train.metrics import bbox_crop, psnr, ssim
 from guassianhand_tpu_torch.train.vgg import VGGLoss
 from guassianhand_tpu_torch.utils.logging import RunLogger
 from guassianhand_tpu_torch.utils.saving import Saver
+
+
+def interhand_dataset(cfg, split: str, device, height: int,
+                      width: int) -> InterHandDataset:
+    """The config's InterHand2.6M split on ``device``, its images resized
+    to ``height`` x ``width`` (the run's, which ``--height`` / ``--width``
+    override)."""
+    d = cfg.data
+    return InterHandDataset(InterHandConfig(
+        data_root=d.data_root, annot_path=d.annot_path, split=split,
+        pose_sequence=d.pose_sequence, edge_subdivide=d.edge_subdivide,
+        mask_sa=d.mask_sa, render_mask=d.render_mask, height=height,
+        width=width, mano_models_path=d.mano_models_path,
+        mano_uv_path=d.mano_uv_path, color_jitter=d.color_jitter,
+        use_native_loader=d.use_native_loader, edit=d.edit,
+        image_path=d.image_path, mask_path=d.mask_path), device=device)
 
 
 def eval_batches(scene: SyntheticHandScene, cfg, frames: int):
@@ -76,9 +107,9 @@ def eval_batches(scene: SyntheticHandScene, cfg, frames: int):
         yield b
 
 
-def evaluate(model, scene, cfg, args, saver: Saver, vgg_pretrained: bool,
+def evaluate(model, frames, cfg, args, saver: Saver, vgg_pretrained: bool,
              hw_h: int, hw_w: int) -> dict:
-    """The mean metrics over the evaluation's frames, written to
+    """The mean metrics over the batches ``frames``, written to
     ``test_metrics.yml`` (the keys of the JAX package's file)."""
     import yaml
     lpips_metric = LPIPS(cfg.lpips_weights).to(args.device)
@@ -87,10 +118,13 @@ def evaluate(model, scene, cfg, args, saver: Saver, vgg_pretrained: bool,
         torch.cuda.reset_peak_memory_stats()
     results = []
     t0 = time.perf_counter()
-    for i, batch in enumerate(eval_batches(scene, cfg, args.val_frames)):
+    for i, batch in enumerate(frames):
         with torch.inference_mode(), no_tf32():
             pred = model(batch, hw_h, hw_w)["comp_rgb"][0, 0]
             tgt = batch["target_rgb"][0]
+            if "bbox_mask" in batch:
+                pred = pred * torch.as_tensor(batch["bbox_mask"] > 0,
+                                              device=pred.device)[..., None]
             scores = {"psnr": float(psnr(pred, tgt)),
                       "mse": float(((pred - tgt) ** 2).mean())}
             if "mask_at_box" in batch:
@@ -157,25 +191,41 @@ def main(argv=None) -> int:
 
     cfg = load_config(args.config, extras)
     if cfg.edit.enabled or cfg.data.edit:
-        print("this CLI does not read the edit settings (edit.*, data.edit), "
-              "as in the JAX package; the edit fit is "
-              "guassianhand_tpu_torch.cli.edit")
-    if not (args.synthetic or cfg.data.dataset == "synthetic"):
-        parser.error("only the synthetic scene is ported yet: pass "
-                     "--synthetic (the InterHand2.6M path is not)")
+        print("this CLI does not read the edit settings (edit.*; data.edit "
+              "only picks InterHand2.6M's edit frame), as in the JAX "
+              "package; the edit fit is guassianhand_tpu_torch.cli.edit")
     print(compute_dtype_line(cfg.model))
-    run_dir = os.path.join(cfg.out_dir, cfg.expname)
-    save_config_snapshot(cfg, run_dir)
-    saver = Saver(run_dir)
     hw_h = args.height or cfg.data.height
     hw_w = args.width or cfg.data.width
 
-    scene = SyntheticHandScene.build(
-        n_vertices=778, subdivide=min(cfg.data.edge_subdivide, 1),
-        height=hw_h, width=hw_w, device=args.device)
+    # the data first: a run whose data is missing writes nothing
+    if args.synthetic or cfg.data.dataset == "synthetic":
+        scene = SyntheticHandScene.build(
+            n_vertices=778, subdivide=min(cfg.data.edge_subdivide, 1),
+            height=hw_h, width=hw_w, device=args.device)
+
+        def fit_batch():
+            return synthetic_batch(scene, seed=cfg.seed,
+                                   raster=cfg.model.renderer.raster,
+                                   with_target=True)
+
+        def frames():
+            return eval_batches(scene, cfg, args.val_frames)
+    else:
+        dataset = interhand_dataset(cfg, "test" if args.run_val else "train",
+                                    args.device, hw_h, hw_w)
+
+        def fit_batch():
+            return dataset.load_sample(0)
+
+        def frames():
+            return (dataset.load_sample(i) for i in range(len(dataset)))
+    run_dir = os.path.join(cfg.out_dir, cfg.expname)
+    save_config_snapshot(cfg, run_dir)
+    saver = Saver(run_dir)
     model = build_model(cfg.model, seed=cfg.seed, device=args.device)
     if cfg.pretrained and os.path.exists(cfg.pretrained):
-        ckpt_lib.load_checkpoint(cfg.pretrained, model)
+        ckpt_lib.load_params_partial(cfg.pretrained, model)
         print(f"loaded pretrained weights from {cfg.pretrained}")
 
     vgg = None
@@ -191,11 +241,11 @@ def main(argv=None) -> int:
         if last:
             ckpt_lib.load_checkpoint(last, model)
             print(f"evaluating checkpoint {last}")
-        evaluate(model, scene, cfg, args, saver, vgg is not None, hw_h, hw_w)
+        evaluate(model, frames(), cfg, args, saver, vgg is not None, hw_h,
+                 hw_w)
         return 0
 
-    batch = synthetic_batch(scene, seed=cfg.seed,
-                            raster=cfg.model.renderer.raster, with_target=True)
+    batch = fit_batch()
     fit_cfg = cfg.fit
     if args.steps:
         fit_cfg = dataclasses.replace(fit_cfg, epochs=1,

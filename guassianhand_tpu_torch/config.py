@@ -5,17 +5,17 @@ command-line overrides.
 ``yaml`` is imported only when a YAML path is given, so a run configured by
 overrides alone needs no YAML package. The run's merged config is written
 as JSON. Every key of the repo's configs loads, with the JAX package's
-value; unknown keys raise. Not every key has an effect yet: the
-InterHand2.6M paths and flags of ``DataConfig`` (the synthetic scene reads
-none of them; ``data.edit``, ``data.image_path`` and ``data.mask_path``
-choose the InterHand2.6M edit frame and image), the TPU layout keys of
-``RasterizeConfig`` and the XLA knob ``backbone_scan`` of ``OneShotConfig``
-(documented there). The ``edit`` section is the renderer's
-``EditConfig``: the fit CLI does not read it, as in the JAX package, and
-the edit CLI (``cli/edit.py``) takes its flags from its command line, as
-the JAX one does. ``model.compute_dtype`` takes effect:
-the entry points print the type the feature pipeline computes in, and the
-snapshot records it as ``compute_dtype_effective``.
+value; unknown keys raise. Not every key has an effect: the synthetic
+scene reads none of ``DataConfig``'s InterHand2.6M paths and flags (the
+InterHand2.6M path, ``data/interhand.py``, reads them all), and the TPU
+layout keys of ``RasterizeConfig`` and the XLA knob ``backbone_scan`` of
+``OneShotConfig`` are stored with no effect (documented there). The
+``edit`` section is the renderer's ``EditConfig``: the fit CLI does not
+read it, as in the JAX package, and the edit CLI (``cli/edit.py``) takes
+its flags from its command line, as the JAX one does.
+``model.compute_dtype`` takes effect: the entry points print the type the
+feature pipeline computes in, and the snapshot records it as
+``compute_dtype_effective``.
 """
 from __future__ import annotations
 
@@ -37,13 +37,18 @@ class DataConfig:
     height: int = 256
     width: int = 256
     edge_subdivide: int = 2
-    # the InterHand2.6M data path and its flags (not ported)
+    # the InterHand2.6M layout (data/interhand.py)
     data_root: str = "./processed_dataset"
     annot_path: str = "./InterHand2.6M/annotations"
+    mano_models_path: Optional[str] = None
+    mano_uv_path: Optional[str] = None
+    # the test sequence --run_val scores: oneshot_reg_i / oneshot_nv / ...
+    pose_sequence: Optional[str] = None
     mask_sa: bool = True
     render_mask: bool = True
     color_jitter: bool = False
-    # the InterHand2.6M edit fit's fixed frame and custom image (not ported)
+    use_native_loader: bool = True
+    # the InterHand2.6M edit fit's fixed frame and custom image
     edit: bool = False
     image_path: Optional[str] = None
     mask_path: Optional[str] = None

@@ -65,10 +65,15 @@ def native_library() -> Tuple[Optional[ctypes.CDLL], str]:
         return _library()
 
 
-def _pil(reason: str):
+def pil_image(reason: Optional[str] = None):
+    """``PIL.Image``, imported now; where PIL is not installed, an error
+    that says why the native decoder did not serve either (``reason``, by
+    default why the library is missing)."""
     try:
         import PIL.Image
     except ImportError:
+        if reason is None:
+            reason = native_library()[1] or "not asked for"
         raise RuntimeError(f"no image decoder: the native loader is missing "
                            f"({reason}) and PIL is not installed") from None
     return PIL.Image
@@ -86,7 +91,7 @@ def decode_image(path: str) -> np.ndarray:
             return buf.reshape(-1)[:h.value * w.value * 3].reshape(
                 h.value, w.value, 3).copy()
         reason = f"the native decoder returned {rc} for {path}"
-    image = _pil(reason)
+    image = pil_image(reason)
     return np.asarray(image.open(path).convert("RGB"), np.float32) / 255.0
 
 
@@ -116,7 +121,7 @@ class PrefetchPool:
         img = decode_image(img_path)
         mask = np.ones(img.shape[:2], np.float32)
         if mask_path:
-            m = np.asarray(_pil(self._reason).open(mask_path))
+            m = np.asarray(pil_image(self._reason).open(mask_path))
             mask = ((m.mean(-1) if m.ndim == 3 else m) >= 100).astype(
                 np.float32)
             img = img * mask[..., None]

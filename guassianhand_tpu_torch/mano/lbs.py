@@ -68,3 +68,11 @@ def lbs(model: ManoModel, betas: torch.Tensor, pose: torch.Tensor,
         v = v + trans[None, :]
         posed_joints = posed_joints + trans[None, :]
     return v, posed_joints
+
+
+def mano_forward(model: ManoModel, betas: torch.Tensor,
+                 global_orient: torch.Tensor, hand_pose: torch.Tensor,
+                 trans: Optional[torch.Tensor] = None):
+    """smplx-style entry: global_orient (3,), hand_pose (45,)."""
+    pose = torch.cat([global_orient.reshape(-1), hand_pose.reshape(-1)])
+    return lbs(model, betas, pose, trans)

@@ -327,9 +327,11 @@ class OneShotAvatarModel(nn.Module):
         """batch (batched over B): points (B, N, 3), points_tar (optional),
         vert_uv (B, N, 2), inter_mask (B, N) bool, mano_pose (B, 96),
         c2w (B, 4, 4), intrinsic_normed (B, 3, 3), w2c_render (B, V, 4, 4),
-        K_render (B, V, 3/4, 3/4), background (B, 3) optional. ``edit``
-        goes to the renderer; ``identity_from_book`` and ``infer_identity``
-        to ``features``.
+        K_render (B, V, 3/4, 3/4), background (B, 3) optional, the posed UV
+        mesh tri_xyz (B, F, 3, 3) and tri_uv (B, F, 3, 2) optional (read by
+        the renderer's ``exact_duplicate_uv``). ``edit`` goes to the
+        renderer; ``identity_from_book`` and ``infer_identity`` to
+        ``features``.
 
         Returns comp_rgb (B, V, H, W, 3), comp_mask (B, V, H, W), hidden,
         n_pairs (B,), overflow (B,), 3dgs (per-sample list), points and
@@ -340,12 +342,15 @@ class OneShotAvatarModel(nn.Module):
         hidden = feats["hidden"]
         query = batch.get("points_tar", points)
         background = batch.get("background")
+        tri_xyz, tri_uv = batch.get("tri_xyz"), batch.get("tri_uv")
         outs = [self.renderer(
             hidden[i], query[i], batch["vert_uv"][i], batch["w2c_render"][i],
             batch["K_render"][i], height=height, width=width,
             background=None if background is None else background[i],
             color_w=self.color_w, xyz_b=self.xyz_b, color_b_map=self.color_b,
-            opacity_b_map=self.opacity_b, edit=edit) for i in range(b)]
+            opacity_b_map=self.opacity_b, edit=edit,
+            tri_xyz=None if tri_xyz is None else tri_xyz[i],
+            tri_uv=None if tri_uv is None else tri_uv[i]) for i in range(b)]
         return {"comp_rgb": torch.stack([o["comp_rgb"] for o in outs]),
                 "comp_mask": torch.stack([o["comp_mask"] for o in outs]),
                 "hidden": hidden,

@@ -418,7 +418,9 @@ def composite_plain(tile_range: torch.Tensor, pair_gid: torch.Tensor,
 
     Tiles are taken in chunks; each chunk's pairs are padded to its largest
     tile count, and the compositing uses the dense oracle's exclusive and
-    inclusive transmittance products and gates (``ops/rasterize_ref.py``).
+    inclusive transmittance products and gates (``ops/rasterize_ref.py``),
+    the products taken one fp32 multiply a pair in order, as the kernel
+    takes them (``transmittance``).
     Returns (rgb (H, W, 3), final_t (H, W)), then with ``store_contrib``
     n_contrib (H, W) int32, the checkpoints and their slot bases (as
     ``composite_forward``; unused rows 0), then with ``count_ops`` the fp32 operations (``OPS_*``)
@@ -446,7 +448,7 @@ def composite_plain(tile_range: torch.Tensor, pair_gid: torch.Tensor,
         ch = _chunk_alpha(tile_range, pair_gid, attrs, counts, t0, t1, cmax,
                           ntx)
         alpha, slot = ch["alpha"], ch["slot"]
-        cp_incl = torch.cumprod(1.0 - alpha, dim=2)
+        cp_incl = transmittance(1.0 - alpha)
         cp_excl = torch.cat([torch.ones_like(cp_incl[..., :1]),
                              cp_incl[..., :-1]], dim=2)
         accept = cp_incl >= T_EPS
@@ -483,6 +485,21 @@ def composite_plain(tile_range: torch.Tensor, pair_gid: torch.Tensor,
     if count_ops:
         out += (image(out_n),)
     return out
+
+
+def transmittance(one_minus: torch.Tensor) -> torch.Tensor:
+    """The inclusive products of ``one_minus`` (..., c) along its last
+    axis, one fp32 multiply a pair in order: the forward kernel's
+    recurrence T (1 - alpha), rounded as it rounds. ``torch.cumprod``
+    rounds elsewhere (a parallel scan on the card, a float64 running
+    product on the CPU), and a pixel whose T falls within rounding of
+    T_EPS then stops a few pairs apart from the kernel."""
+    g = one_minus.movedim(-1, 0).contiguous()
+    out = torch.empty_like(g)
+    out[0] = g[0]
+    for j in range(1, g.shape[0]):
+        torch.mul(out[j - 1], g[j], out=out[j])
+    return out.movedim(0, -1)
 
 
 def _store_checkpoints(ckpt, t_after, w, colors, n_chunks, slot_base,

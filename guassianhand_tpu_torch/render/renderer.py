@@ -10,7 +10,11 @@ and the multi-view render.
   the narrow 3-channel layouts give the same result), ``opacity_b`` and
   ``xyz_b``, under the texture-edit flags of ``EditConfig``;
 - views: one stacked multi-view raster, one binning and one composite
-  launch for all views.
+  launch for all views;
+- ``exact_duplicate_uv``: every point's UV (the refined duplicates' too)
+  re-projected through the posed UV mesh (``mano/uv.py::get_uvd``) where
+  the caller passes it, as the reference does each forward; off by
+  default, where the duplicates reuse their parent's UV.
 
 The interaction attention ``self_attn_layer`` lives here, as in the
 reference module tree; the model calls it before rendering, and it alone
@@ -26,7 +30,7 @@ import torch
 import torch.nn as nn
 
 from guassianhand_tpu_torch.core.gaussians import Gaussians
-from guassianhand_tpu_torch.mano.uv import normalize_uv
+from guassianhand_tpu_torch.mano.uv import get_uvd, normalize_uv
 from guassianhand_tpu_torch.nn.heads import (GSLayer, SelfAttn, VertPosRefinement,
                                              VertValid)
 from guassianhand_tpu_torch.nn.mlp import MLP
@@ -59,6 +63,9 @@ class RendererConfig:
     threshold_high: float = 0.9
     sh_degree: int = 3
     use_rgb: bool = True
+    # re-project all 2N points' UVs through the posed UV mesh (tri_xyz
+    # (F, 3, 3), tri_uv (F, 3, 2)) with get_uvd: O(N F) a forward
+    exact_duplicate_uv: bool = False
     raster: RasterizeConfig = RasterizeConfig()
 
 
@@ -78,11 +85,13 @@ class GSRenderer(nn.Module):
                                         compute_dtype=compute_dtype)
 
     def build_gaussians(self, features: torch.Tensor, points: torch.Tensor,
-                        vert_uv: torch.Tensor):
+                        vert_uv: torch.Tensor, tri_xyz=None, tri_uv=None):
         """features (N, C), points (N, 3), vert_uv (N, 2) packed-atlas UVs.
         Returns (Gaussians with 2N slots and validity, uv (2N, 2)); the
         duplicates reuse their parent's UV (the refinement moves a point by
-        at most 1e-3, below one texel)."""
+        at most 1e-3, below one texel), unless ``exact_duplicate_uv`` is on
+        and the posed UV mesh ``tri_xyz`` (F, 3, 3), ``tri_uv`` (F, 3, 2) is
+        given: then all 2N UVs come from ``get_uvd``."""
         score = self.gs_valid(features, points)[:, 0]
         keep = score > self.cfg.threshold_low
         dup = score > self.cfg.threshold_high
@@ -92,6 +101,8 @@ class GSRenderer(nn.Module):
                          torch.cat([points, refined], 0))
         valid = torch.cat([keep, dup], 0).to(torch.float32)
         gs = dataclasses.replace(gs, valid=valid)
+        if self.cfg.exact_duplicate_uv and tri_xyz is not None:
+            return gs, get_uvd(gs.xyz, tri_xyz, tri_uv)[0]
         return gs, torch.cat([vert_uv, vert_uv], 0)
 
     @staticmethod
@@ -150,9 +161,10 @@ class GSRenderer(nn.Module):
     def forward(self, features, points, vert_uv, w2cs, Ks, *, height: int,
                 width: int, background=None, color_w=None, xyz_b=None,
                 color_b_map=None, opacity_b_map=None,
-                edit: EditConfig = EditConfig()):
+                edit: EditConfig = EditConfig(), tri_xyz=None, tri_uv=None):
         """One sample; the model loops over its batch."""
-        gs, uv = self.build_gaussians(features, points, vert_uv)
+        gs, uv = self.build_gaussians(features, points, vert_uv, tri_xyz,
+                                      tri_uv)
         gs = self.apply_appearance(gs, uv, color_w, xyz_b, color_b_map,
                                    opacity_b_map, edit)
         out = self.render_views(gs, w2cs, Ks, height, width, background)

@@ -18,6 +18,7 @@ import chip_smoke
 from guassianhand_tpu.ops import binning as jbin
 from guassianhand_tpu.ops.rasterize import RasterizeConfig, _composite
 from guassianhand_tpu_torch.ops import rasterize_cuda as rc
+from guassianhand_tpu_torch.ops.common import T_EPS
 from guassianhand_tpu_torch.ops.binning import bin_gaussians
 from guassianhand_tpu_torch.ops.segreduce_cuda import segment_reduce_plain
 from tests.torch_parity import (RASTER_ATOL, RASTER_RTOL,  # noqa: F401
@@ -181,6 +182,52 @@ def test_checkpoints_hold_the_sequential_walk():
                                atol=0)
     np.testing.assert_allclose(ckpt.numpy()[..., 1:], want[..., 1:],
                                atol=RASTER_ATOL, rtol=RASTER_RTOL)
+
+
+def threshold_alphas(n: int = 45, seed: int = 1):
+    """``n + 1`` alphas in [0.1, 0.2] and one last alpha chosen so that T
+    after all of them, taken one fp32 multiply a pair in order, falls on
+    the other side of T_EPS from ``torch.cumprod``'s T; and the walk's T
+    after each pair."""
+    rng = np.random.RandomState(seed)
+    one, t_eps = np.float32(1), np.float32(T_EPS)
+    while True:
+        alphas = rng.uniform(0.1, 0.2, n).astype(np.float32)
+        t = np.float32(1)
+        for a in alphas:
+            t = np.float32(t * (one - a))
+        last = up = down = np.float32(1 - t_eps / t)
+        for _ in range(100):
+            walk = np.float32(t * (one - last))
+            scan = torch.cumprod(torch.from_numpy(
+                one - np.append(alphas, last)), 0)[-1].item()
+            if (walk < t_eps) != (scan < t_eps):
+                alphas = np.append(alphas, last)
+                return alphas, np.cumprod(one - alphas, dtype=np.float32)
+            up = np.nextafter(up, one)
+            down = np.nextafter(down, np.float32(0))
+            last = up if last == down else down
+
+
+def test_twin_stops_where_the_fp32_walk_stops():
+    """A pixel whose T after its last pair lands within rounding of T_EPS
+    (Gaussians centred on it, so each alpha is its opacity): the twin's
+    n_contrib and final T are those of the walk T (1 - alpha) one fp32
+    multiply a pair, the kernel's recurrence, exactly, where
+    ``torch.cumprod`` rounds the product across the threshold."""
+    alphas, walk = threshold_alphas()
+    assert walk[-2] >= T_EPS
+    rng = np.random.RandomState(2)
+    rows = [[0.0, 0.0, 0.1, 0.0, 0.1, a, *rng.uniform(0, 1, 3)]
+            for a in alphas]
+    inputs = chip_smoke.pair_rows_inputs(rows, [len(rows)], 16, 16,
+                                         device="cpu")
+    _, final_t, n_contrib, _, _ = rc.composite_plain(
+        inputs.tile_range, inputs.pair_gid, inputs.attrs, height=16,
+        width=16, store_contrib=True)
+    stopped = walk[-1] < T_EPS
+    assert int(n_contrib[0, 0]) == len(alphas) - int(stopped)
+    assert float(final_t[0, 0]) == float(walk[-2] if stopped else walk[-1])
 
 
 def test_chunk_plan_items():

@@ -65,14 +65,32 @@ def test_unknown_keys_raise():
         assert get(got, path) == get(want, path), path
 
 
+def test_data_config_has_every_jax_field():
+    """Every field of the JAX package's DataConfig exists in the port's,
+    with the same default, and an override of each new one loads (as
+    cli/port_and_eval.py passes data.pose_sequence and the paths)."""
+    jfields = {f.name: f.default for f in
+               dataclasses.fields(jconfig.DataConfig)}
+    tfields = {f.name: f.default for f in
+               dataclasses.fields(tconfig.DataConfig)}
+    assert tfields == jfields
+    cfg = tconfig.load_config(None, [
+        "data.pose_sequence=oneshot_reg_i", "data.mano_models_path=m",
+        "data.mano_uv_path=u", "data.use_native_loader=false"])
+    assert (cfg.data.pose_sequence, cfg.data.mano_models_path,
+            cfg.data.mano_uv_path, cfg.data.use_native_loader) == (
+        "oneshot_reg_i", "m", "u", False)
+
+
 def test_bf16_and_edit_are_not_run_silently(tmp_path, capsys):
     """configs/one_shot.yaml builds a model whose feature pipeline computes
     in bf16 (its parameters float32), and the line the entry points print
     and the snapshot's compute_dtype_effective say bfloat16; without
     compute_dtype both say float32. Given an edit config, the fit CLI says
     that it does not read the edit settings (as in the JAX package, the
-    edit fit is cli/edit.py), and without --synthetic it refuses the
-    config's InterHand2.6M data before it builds or writes anything."""
+    edit fit is cli/edit.py), and without --synthetic it goes to the
+    config's InterHand2.6M data, which it loads before it builds or writes
+    anything: with no MANO pickles it stops there."""
     cfg = tconfig.load_config(str(CONFIGS[0].parent / "one_shot.yaml"))
     assert cfg.model.compute_dtype == "bfloat16"
     model = OneShotAvatarModel(dataclasses.replace(
@@ -89,12 +107,12 @@ def test_bf16_and_edit_are_not_run_silently(tmp_path, capsys):
     assert snap["compute_dtype_effective"] == "bfloat16"
     assert snap["model"]["compute_dtype"] == "bfloat16"
     for name in ("one_shot_edit.yaml", "one_shot_avatar_drive.yaml"):
-        with pytest.raises(SystemExit):
+        with pytest.raises(FileNotFoundError, match="MANO model pickles"):
             fit_one_shot.main(["--config", str(CONFIGS[0].parent / name),
                                "--device", "cpu",
-                               f"out_dir={tmp_path / 'runs'}"])
+                               f"out_dir={tmp_path / 'runs'}",
+                               f"data.mano_models_path={tmp_path / 'none'}"])
         said = capsys.readouterr()
         assert "does not read the edit settings" in said.out
         assert "cli.edit" in said.out
-        assert "InterHand2.6M" in said.err
     assert not (tmp_path / "runs").exists()

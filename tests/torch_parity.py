@@ -191,7 +191,8 @@ def environ(**values):
 
 
 def fit_against_jax(jcfg, tiny, hw: int, steps: int, port_env=None,
-                    forward_kw=None, lr: float = 0.01, vgg: float = 0.1):
+                    forward_kw=None, lr: float = 0.01, vgg: float = 0.1,
+                    batch=None):
     """``steps`` fit steps (one update each, learning rate ``lr``, VGG
     weight ``vgg``) of each package from the same parameters on the same
     batch, at the JAX model config ``jcfg`` (the port gets
@@ -199,7 +200,9 @@ def fit_against_jax(jcfg, tiny, hw: int, steps: int, port_env=None,
     forward with the options ``forward_kw`` (the edit fit's ``edit`` and
     ``identity_from_book``, given as the port's ``EditConfig``); the port's
     steps run under the environment ``port_env``. Both get the JAX
-    package's batch (the points' last-ulp LBS differences would otherwise
+    package's batch: ``batch`` (numpy arrays of the model's and the
+    targets' keys) or the synthetic scene's (the points' last-ulp LBS
+    differences would otherwise
     flip a few points of the interaction mask, ROADMAP.md Queue C) and the
     port's seeded init carried into the JAX layout, with seeded noise on
     every leaf. Returns the parameters, the losses and error terms of both,
@@ -226,9 +229,11 @@ def fit_against_jax(jcfg, tiny, hw: int, steps: int, port_env=None,
     if "edit" in forward_kw:
         j_forward_kw["edit"] = JEditConfig(
             **dataclasses.asdict(forward_kw["edit"]))
-    jscene = JScene.build(n_vertices=96, subdivide=1, height=hw, width=hw)
-    batch = {k: np.asarray(v) for k, v in jax.jit(lambda: j_batch(
-        jscene, seed=0, raster=jcfg.renderer.raster))().items()}
+    if batch is None:
+        jscene = JScene.build(n_vertices=96, subdivide=1, height=hw,
+                              width=hw)
+        batch = {k: np.asarray(v) for k, v in jax.jit(lambda: j_batch(
+            jscene, seed=0, raster=jcfg.renderer.raster))().items()}
     jm = JModel(cfg=jcfg)
     shapes = jax.eval_shape(lambda k, b: jm.init(k, b, hw, hw),
                             jax.random.PRNGKey(0), batch)
