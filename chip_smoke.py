@@ -97,7 +97,8 @@ Phases, each reported on its own line:
      render mode, its plan and K4's forward twice (its synthetic target's
      render and the model's) and the bf16 flash attention's forward once
      and nothing else, its test_metrics.yml holding the JAX
-     package's keys; cli/render_360.py --ckpt renders 8 views of it; SSIM
+     package's keys; cli/render_360.py --ckpt renders 8 views of it (the
+     config's scene, the one it was fitted on, and turntable.gif); SSIM
      and the seeded random-AlexNet LPIPS of one of its frames on the card
      and on the CPU agree within 1e-5;
  12. InterHand2.6M: configs/one_shot.yaml with both switches on a fake
@@ -112,7 +113,17 @@ Phases, each reported on its own line:
      cli/port_and_eval.py --dry_run (0, then 2 without the fit frame's
      image) and end to end; load_sample on the card against the CPU; K1-K4
      and the bf16 K5 against their twins at the InterHand fit's inputs;
- 13. reference: a small model rendered, and fitted for 2 steps, on the card
+ 13. the point-cloud generator at full width (num_pcl 2,048, 512 point
+     channels, a 10-layer backbone of 8 x 64 heads, up factors (2, 4),
+     DINOv2 ViT-B/14): a seeded reference-layout checkpoint and a seeded
+     Hugging Face DINOv2 state dict through cli/port_checkpoint.py
+     --dinov2 and load_point_generator (every tensor back to the bit); the
+     one-shot bypass on the synthetic scene's 15,404 points (FPS to 2,048,
+     16,384 out), the FPS alone (its indices equal to the CPU's), generate
+     on one 252^2 image, ImageFeature at 256^2 and the point z-buffer, each
+     timed (wall, device busy, launches, peak bytes) and held against the
+     same call on the CPU; no hand-written kernel lies on this path;
+ 14. reference: a small model rendered, and fitted for 2 steps, on the card
      and on the CPU with the same weights must agree, with the switches off
      and on; and rendered with both switches under each edit flag with the
      codebook's identity 3 and seeded per-identity maps.
@@ -329,6 +340,13 @@ def scene_inputs(n: int, height: int, width: int, *, views: int = 1,
         gs, torch.as_tensor(w2cs, device=device),
         torch.as_tensor(np.stack([K] * views), device=device), height=height,
         width=width, use_rgb=True)
+
+
+def slice_config():
+    """The serving and fit slices' model: configs/one_shot.yaml's widths in
+    fp32, with the narrow rgb colour offset (bench.py's fit workload)."""
+    from guassianhand_tpu_torch.models.one_shot import OneShotConfig
+    return OneShotConfig(narrow_color_b=True)
 
 
 def reference_config():
@@ -1735,15 +1753,14 @@ def phase_bf16_psnr_gate(steps: int = PSNR_STEPS) -> dict:
     switches on; the fitted render's PSNR against the target of each bf16
     arm must lie within 0.1 dB of the fp32 arm's (the JAX package's bar,
     configs/one_shot.yaml)."""
-    from guassianhand_tpu_torch.cli.render_360 import MODEL_CONFIG
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                        synthetic_batch)
     from guassianhand_tpu_torch.models.one_shot import no_tf32
     scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
                                      width=HW, device="cuda")
     batch = synthetic_batch(scene, seed=0, with_target=True)
-    bf16 = dataclasses.replace(MODEL_CONFIG, compute_dtype="bfloat16")
-    arms = {"fp32": MODEL_CONFIG, "bf16": bf16,
+    bf16 = dataclasses.replace(slice_config(), compute_dtype="bfloat16")
+    arms = {"fp32": slice_config(), "bf16": bf16,
             "bf16_softmax_bf16_remat": flagship_config()}
     rows = {}
     with flash_switch(True):
@@ -1973,16 +1990,18 @@ def phase_eval(info: dict, edit: dict, out_dir: str) -> dict:
     t1 = time.perf_counter()
     frames = Path(out_dir) / "turntable"
     with flash_switch(True):
-        rc = render_360.main([
+        rc, said = run_quiet(render_360.main, [
             "--config", cfg_path, "--ckpt", str(run_dir / "ckpts" /
                                                 "last.ckpt"),
             "--views", str(TURNTABLE_VIEWS), "--views_per_call", str(VIEWS),
             f"--out={frames}", switches])
     turntable_s = time.perf_counter() - t1
     written = sorted(p.name for p in frames.glob("*.png"))
-    if rc != 0 or len(written) != TURNTABLE_VIEWS:
+    turntable = json.loads(said.strip().splitlines()[-1])
+    if rc != 0 or len(written) != TURNTABLE_VIEWS \
+            or not (frames / "turntable.gif").is_file():
         raise AssertionError(f"cli/render_360.py --ckpt: rc {rc}, frames "
-                             f"{written}")
+                             f"{written}, {turntable}")
 
     # one of the eval's frames, scored on the card and on the CPU
     cfg = edit_config()
@@ -2017,9 +2036,17 @@ def phase_eval(info: dict, edit: dict, out_dir: str) -> dict:
            "model_ms_per_frame": model_ms, "n_points": scene.n_points,
            "metrics": scores, "launches": launches,
            "turntable_views": TURNTABLE_VIEWS, "turntable_seconds": turntable_s,
+           "turntable_points": turntable["n_points"],
+           "turntable_video": Path(turntable["video"]).name,
            "metrics_card": card, "metrics_cpu": host,
            "card_vs_cpu_abs": diff, "card": info["nvidia_smi"]}
     log("eval", **row)
+    # the turntable renders the config's scene, which the checkpoint was
+    # fitted on and the evaluation scores
+    if turntable["n_points"] != scene.n_points:
+        raise AssertionError(f"cli/render_360.py rendered "
+                             f"{turntable['n_points']} points, not "
+                             f"{scene.n_points}")
     if max(diff.values()) > 1e-5:
         raise AssertionError(f"ssim or LPIPS on the card and the CPU "
                              f"disagree: {row}")
@@ -2056,12 +2083,12 @@ def phase_interhand_checkpoint(cfg, root: Path) -> tuple:
     """A reference-layout checkpoint of the seeded full-width model of
     ``cfg`` (seed 0, every tensor with seeded noise of 1e-3:
     ``interhand_layout().add_noise``)
-    through cli/port_checkpoint.py: its unmapped keys must be exactly the
-    point-cloud generator's; loaded by ``pretrained:``'s loader into a
-    model of seed 1, every tensor it carries must equal the seed-0 model's
-    to the bit, the missing ones be only the identity-code head, and
-    ``restored N/M`` count the tensors the converter mapped. Returns the
-    reference checkpoint and the ported one."""
+    through cli/port_checkpoint.py: no key may be unmapped; loaded by
+    ``pretrained:``'s loader into a model of seed 1, every tensor it
+    carries must equal the seed-0 model's to the bit, the missing ones be
+    only the identity-code head, ``restored N/M`` count the avatar's
+    tensors, and the point-cloud generator's keys be reported absent from
+    the avatar. Returns the reference checkpoint and the ported one."""
     from guassianhand_tpu_torch.cli import port_checkpoint
     from guassianhand_tpu_torch.models.one_shot import build_model
     from guassianhand_tpu_torch.train.checkpoints import load_params_partial
@@ -2081,6 +2108,8 @@ def phase_interhand_checkpoint(cfg, root: Path) -> tuple:
     generator = sorted(k.removeprefix("model.") for k in ref
                        if k.startswith("model.pointcloud_generator."))
     n_ported = len(ref) - len(generator)
+    absent = f"skipped: pointcloud_generator (absent, {len(generator)} " \
+             f"tensors)"
     target = build_model(cfg.model, seed=1, device="cuda")
     got, loaded = run_quiet(load_params_partial, str(out), target)
     own = target.state_dict()
@@ -2093,11 +2122,11 @@ def phase_interhand_checkpoint(cfg, root: Path) -> tuple:
         source_keys=len(ref), ported=n_ported, unmapped=len(unmapped),
         restored_line=loaded.strip(), missing=got["missing"],
         unequal=unequal)
-    if rc != 0 or unmapped != generator:
+    if rc != 0 or unmapped or f"ported {len(ref)} tensors" not in said:
         raise AssertionError(f"cli/port_checkpoint.py: rc {rc}, unmapped "
-                             f"{unmapped}, not {generator}")
+                             f"{unmapped}: {said!r}")
     if f"restored {n_ported}/{len(own)} " not in loaded or unequal \
-            or bad_missing:
+            or bad_missing or absent not in loaded:
         raise AssertionError(f"pretrained load: {loaded!r}, unequal "
                              f"{unequal}, missing {got['missing']}")
     return src, out
@@ -2420,6 +2449,238 @@ def phase_interhand(info: dict, out_dir: str) -> dict:
             "eval_launches": evaluation["launches"], "rows": rows}
 
 
+GEN_HW = 252       # the generator's image: 18 x 18 patches + CLS
+GEN_REPS = 3       # timed calls of each generator path after a warm-up
+GEN_RTOL = 1e-3    # card vs CPU: max |card - CPU| <= GEN_RTOL * max(1, |CPU|)
+# ... except at the points whose kNN neighbours the two devices' distance
+# rounding orders apart at exact ties (ROADMAP Queue C): at most this share
+GEN_FLIP_SHARE = 0.01
+
+
+def generator_reference_files(root: Path) -> tuple:
+    """A seeded full-width SimplePointGenerator (seed 0): its state dict in
+    the reference checkpoint's layout (``model.pointcloud_generator.*``,
+    the ViT left out, as the reference leaves it out) and its ViT as a
+    Hugging Face DINOv2 state dict (``dinov2.*``, with a mask token), both
+    written under ``root``. Returns (the generator, the two paths)."""
+    from guassianhand_tpu_torch.models.point_generator import (
+        SimplePointGenerator)
+    source = SimplePointGenerator()
+    source.reset_parameters(torch.Generator().manual_seed(0))
+    vit = "image_tokenizer.model."
+    ref, dino = {}, {}
+    for k, v in source.state_dict().items():
+        if k.startswith(vit):
+            dino["dinov2." + k.removeprefix(vit)] = v
+        else:
+            ref["model.pointcloud_generator." + k] = v
+    dino["dinov2.embeddings.mask_token"] = torch.zeros(1, 768)
+    src, hf = root / "generator_reference.ckpt", root / "dinov2.bin"
+    torch.save({"state_dict": ref}, src)
+    torch.save(dino, hf)
+    return source, src, hf
+
+
+def time_generator_call(label: str, fn, cpu_fn, reps: int = GEN_REPS,
+                        events: list = None) -> tuple:
+    """One warm-up call of ``fn`` on the card, ``reps`` timed calls (host
+    clock to a synchronise), one profiled call (device busy ms, kernel
+    launches, top kernels; or ``events``, the kernel rows of parts of the
+    call profiled apart), the peak bytes of a call, and the card's output
+    against ``cpu_fn``'s on the port's CPU path. None of the port's
+    hand-written kernels may launch. Returns (row, card output, CPU
+    output)."""
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = fn()
+        torch.cuda.synchronize()
+        zero_launches()
+        ms = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        launched = {k: v for k, v in read_launches().items() if v}
+        t = time.perf_counter()
+        if events is None:
+            events = profile_kernels(fn)
+        profiled_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        t = time.perf_counter()
+        ref = cpu_fn()
+        cpu_s = time.perf_counter() - t
+    top = sorted(events, key=_device_us, reverse=True)[:8]
+    row = {"ms": ms, "ms_mean": float(np.mean(ms)),
+           "device_busy_ms": sum(_device_us(e) for e in events) / 1e3,
+           "launches": sum(e.count for e in events),
+           "peak_bytes": peak, "peak_bytes_above_inputs": peak - base,
+           "cpu_reference_s": cpu_s, "profiled_call_s": profiled_s,
+           "seconds": time.perf_counter() - t0,
+           "top_device_ms": [[e.key[:60], _device_us(e) / 1e3, e.count]
+                             for e in top]}
+    row["device_busy_share"] = row["device_busy_ms"] / row["ms_mean"]
+    if launched:
+        raise AssertionError(f"{label} launched {launched}: no hand-written "
+                             f"kernel lies on the generator's path")
+    return row, out, ref
+
+
+def card_vs_cpu(label: str, out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """max |card - CPU| over ``out``; the share of points (rows of the last
+    axis) off by more than GEN_RTOL * max(1, max |CPU|) may not pass
+    GEN_FLIP_SHARE."""
+    out = out.float().cpu()
+    ref = ref.float()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: shape {tuple(out.shape)} against "
+                             f"{tuple(ref.shape)}, or not finite")
+    diff = (out - ref).abs()
+    tol = GEN_RTOL * max(1.0, float(ref.abs().max()))
+    off = (diff.reshape(-1, diff.shape[-1]).amax(-1) > tol).float().mean()
+    row = {"max_abs_diff": float(diff.max()),
+           "rows_over_tol_share": float(off), "tol": tol}
+    if float(off) > GEN_FLIP_SHARE:
+        raise AssertionError(f"{label}: card against CPU {row}")
+    return row
+
+
+def phase_point_generator(info: dict, out_dir: str) -> dict:
+    """The point-cloud generator at full width (num_pcl 2,048, 512 point
+    channels, a 10-layer backbone of 8 x 64 heads, up factors (2, 4),
+    dim_feat 128, a camera embedding of 768, DINOv2 ViT-B/14 12 x 768): a
+    seeded reference-layout checkpoint and a seeded Hugging Face DINOv2
+    state dict through ``cli/port_checkpoint.py --dinov2``, loaded by
+    ``load_point_generator`` (every tensor bit-equal to the seeded
+    generator's); then on the card, each timed (phase
+    ``time_generator_call``) and held against the same call on the CPU:
+    the bypass ``forward`` on the synthetic scene's 15,404 points (FPS to
+    2,048, 16,384 out), the FPS alone (its indices against the CPU's, to
+    the index), ``generate`` on one 252^2 image and a seeded camera
+    (16,384 out), ``ImageFeature`` on the scene's 256^2 render and mask
+    with the image's tokens, and ``rasterize_points`` of the scene's points
+    at 256^2 (winners exact)."""
+    from guassianhand_tpu_torch.cli import port_checkpoint
+    from guassianhand_tpu_torch.compat.torch_port import load_point_generator
+    from guassianhand_tpu_torch.core.camera import Camera
+    from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
+                                                       synthetic_batch)
+    from guassianhand_tpu_torch.models.point_generator import ImageFeature
+    from guassianhand_tpu_torch.ops.fps import farthest_point_sample
+    from guassianhand_tpu_torch.ops.zbuffer import rasterize_points
+    root = Path(out_dir) / "point_generator"
+    root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    source, src, hf = generator_reference_files(root)
+    ported = root / "generator.port.ckpt"
+    rc, said = run_quiet(port_checkpoint.main, [
+        "--torch_ckpt", str(src), "--out", str(ported), "--dinov2", str(hf)])
+    cpu_gen, loaded = run_quiet(load_point_generator, str(ported), "cpu")
+    want = source.state_dict()
+    own = cpu_gen.state_dict()
+    unequal = [k for k in want if not torch.equal(own[k], want[k])]
+    n = len(want)
+    log("point_generator_checkpoint", seconds=time.perf_counter() - t0,
+        tensors=n, restored_line=loaded.strip(), unequal=unequal,
+        port_said=said.strip().splitlines()[-1])
+    if rc != 0 or "unmapped" in said or unequal \
+            or f"restored {n}/{n} " not in loaded:
+        raise AssertionError(f"the generator's checkpoint: rc {rc}, {said!r}"
+                             f", {loaded!r}, unequal {unequal}")
+    del source, want, own
+    gen = load_point_generator(str(ported), "cuda")
+    cpu_gen.eval()
+
+    # the scene and its target render built on the card (the render through
+    # the port's kernels), then copied to the host for the CPU runs
+    scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
+                                     width=HW, device="cuda")
+    with torch.inference_mode():
+        batch = {k: v.cpu() for k, v in synthetic_batch(
+            scene, seed=0, with_target=True).items()}
+    pts = batch["points"]                                  # (1, 15,404, 3)
+    rng = torch.Generator().manual_seed(1)
+    image = torch.rand(1, GEN_HW, GEN_HW, 3, generator=rng)
+    camera = torch.randn(1, 25, generator=rng)
+    rows = {"config": {"num_pcl": gen.num_pcl, "points_in": pts.shape[1],
+                       "image": GEN_HW, "card": info["nvidia_smi"]}}
+
+    def cuda(*ts):
+        return [t.cuda() for t in ts]
+
+    pts_c, image_c, camera_c = cuda(pts, image, camera)
+    # the bypass is the FPS (a loop of 35,000 launches, which the profiler
+    # takes some 20 s to record) and the decoder on its 2,048 points: the
+    # two are profiled apart, once, and their kernel rows serve both rows
+    p0, p0_c = pts[0], pts_c[0]
+    with torch.inference_mode():
+        base_c = p0_c[farthest_point_sample(p0_c, gen.num_pcl)][None]
+        gen(base_c)                                        # warm-up
+        fps_events = profile_kernels(
+            lambda: farthest_point_sample(p0_c, gen.num_pcl))
+        decoder_events = profile_kernels(lambda: gen(base_c))
+    rows["bypass"], out, ref = time_generator_call(
+        "bypass", lambda: gen(pts_c), lambda: cpu_gen(pts), reps=2,
+        events=fps_events + decoder_events)
+    rows["bypass"]["card_vs_cpu"] = card_vs_cpu("bypass", out, ref)
+    rows["bypass"]["points_out"] = out.shape[1]
+    rows["bypass"]["decoder_device_busy_ms"] = sum(
+        _device_us(e) for e in decoder_events) / 1e3
+
+    rows["fps"], idx, idx_ref = time_generator_call(
+        "fps", lambda: farthest_point_sample(p0_c, gen.num_pcl),
+        lambda: farthest_point_sample(p0, gen.num_pcl), reps=1,
+        events=fps_events)
+    flips = int((idx.cpu() != idx_ref).sum())
+    rows["fps"]["index_flips"] = flips
+    rows["fps"]["share_of_bypass_ms"] = (rows["fps"]["ms_mean"]
+                                         / rows["bypass"]["ms_mean"])
+    rows["fps"]["share_of_bypass_busy"] = (rows["fps"]["device_busy_ms"]
+                                           / rows["bypass"]["device_busy_ms"])
+
+    rows["generate"], out, ref = time_generator_call(
+        "generate", lambda: gen.generate(image_c, camera_c),
+        lambda: cpu_gen.generate(image, camera))
+    rows["generate"]["card_vs_cpu"] = card_vs_cpu("generate", out, ref)
+    rows["generate"]["points_out"] = out.shape[1]
+
+    with torch.inference_mode():
+        tokens = cpu_gen.image_tokenizer(
+            image, cpu_gen.camera_embedder(camera))
+    rgb, mask = batch["target_rgb"], batch["target_mask"]
+    feature = ImageFeature()
+    rgb_c, tokens_c, mask_c = cuda(rgb, tokens, mask)
+    rows["image_feature"], out, ref = time_generator_call(
+        "image_feature", lambda: feature(rgb_c, tokens_c, mask_c),
+        lambda: feature(rgb, tokens, mask))
+    rows["image_feature"]["card_vs_cpu"] = card_vs_cpu("image_feature", out,
+                                                       ref)
+
+    cam = Camera.from_w2c(batch["w2c_render"][0, 0], batch["K_render"][0, 0],
+                          HW, HW, device="cpu")
+    cam_c = Camera.from_w2c(cam.w2c, cam.K, HW, HW, device="cuda")
+    rows["rasterize_points"], out, ref = time_generator_call(
+        "rasterize_points", lambda: rasterize_points(p0_c, cam_c, HW, HW),
+        lambda: rasterize_points(p0, cam, HW, HW))
+    rows["rasterize_points"]["winner_mismatch"] = int(
+        (out[0].cpu() != ref[0]).sum())
+    rows["rasterize_points"]["covered_pixels"] = int((ref[0] >= 0).sum())
+    rows["rasterize_points"]["depth_max_abs_diff"] = float(
+        (out[1].cpu() - ref[1]).abs().max())
+    rows["seconds"] = time.perf_counter() - t0
+    log("point_generator", **rows)
+    if flips or rows["rasterize_points"]["winner_mismatch"] \
+            or rows["bypass"]["points_out"] != gen.num_pcl * 8 \
+            or rows["generate"]["points_out"] != gen.num_pcl * 8:
+        raise AssertionError(f"the generator on the card: FPS {flips} index "
+                             f"flips, {rows}")
+    return rows
+
+
 def phase_raster_fwd_bwd(parent=None) -> dict:
     """bench.py::main's step on the card: project, bin, composite forward
     and backward at the bench scene, with the gradients of xyz, scaling,
@@ -2503,14 +2764,13 @@ def phase_slice(kernels: bool = False, model_cfg=None,
                 route: str = None, want: tuple = None):
     """R requests of V views of the full-width avatar, on the default route
     or with both kernel switches on (where each request must launch the
-    projection once for its V views), of ``model_cfg`` (render_360's
-    MODEL_CONFIG, fp32, unless given); ``want`` the kernels the requests
+    projection once for its V views), of ``model_cfg`` (``slice_config``,
+    fp32, unless given); ``want`` the kernels the requests
     must launch (all others must not launch); then a profiled request.
     Returns the last request's composite inputs (the avatar's projected
     Gaussians), the launch counts, the last request's Gaussians and
     cameras, the request rows and the profile."""
-    from guassianhand_tpu_torch.cli.render_360 import (MODEL_CONFIG,
-                                                       orbit_batch,
+    from guassianhand_tpu_torch.cli.render_360 import (orbit_batch,
                                                        render_request)
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                        synthetic_batch)
@@ -2518,7 +2778,7 @@ def phase_slice(kernels: bool = False, model_cfg=None,
     from guassianhand_tpu_torch.ops.rasterize import multiview_composite_inputs
 
     route = route or ("kernels" if kernels else "default")
-    cfg = kernel_config(model_cfg or MODEL_CONFIG, kernels)
+    cfg = kernel_config(model_cfg or slice_config(), kernels)
     t0 = time.perf_counter()
     scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
                                      width=HW, device="cuda")
@@ -2597,18 +2857,23 @@ def _device_us(event) -> float:
     return float(event.self_device_time_total)
 
 
-def device_profile(fn):
-    """Run ``fn`` once under torch.profiler: (device busy ms, the top
-    kernels as [name, ms, count])."""
+def profile_kernels(fn) -> list:
+    """Run ``fn`` once under torch.profiler: its kernel rows (operators'
+    rows repeat their kernels' device time and are left out)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # kernel rows only: an operator's row repeats its kernels' device time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and _device_us(e) > 0]
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and _device_us(e) > 0]
+
+
+def device_profile(fn):
+    """Run ``fn`` once under torch.profiler: (device busy ms, the top
+    kernels as [name, ms, count])."""
+    events = profile_kernels(fn)
     top = sorted(events, key=_device_us, reverse=True)[:12]
     return (sum(_device_us(e) for e in events) / 1e3,
             [[e.key[:60], _device_us(e) / 1e3, e.count] for e in top])
@@ -2743,15 +3008,14 @@ def phase_fit(kernels: bool = False, model_cfg=None, route: str = None,
     warm-up loss (the parameters' first, before any update) and the fitted
     avatar's inputs of the kernels: its composite inputs in the fit view,
     its Gaussians and camera, and the interaction attention's q, k, v and
-    mask. ``model_cfg`` is the model (render_360's MODEL_CONFIG, fp32,
+    mask. ``model_cfg`` is the model (``slice_config``, fp32,
     unless given), ``want`` the kernels the steps must launch (all others
     must not launch)."""
-    from guassianhand_tpu_torch.cli.render_360 import MODEL_CONFIG
     from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                        synthetic_batch)
     from guassianhand_tpu_torch.train.fit import trainable_mask
     route = route or ("kernels" if kernels else "default")
-    cfg = kernel_config(model_cfg or MODEL_CONFIG, kernels)
+    cfg = kernel_config(model_cfg or slice_config(), kernels)
     t0 = time.perf_counter()
     scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
                                      width=HW, device="cuda")
@@ -3103,6 +3367,7 @@ def main(argv=None) -> int:
         edit_launches, eval_launches = edit["launches"], evaluation["launches"]
         del edit
         interhand = phase_interhand(info, out_dir)
+        phase_point_generator(info, out_dir)
     ih_fit, ih_eval = interhand["fit_launches"], interhand["eval_launches"]
     ih_rows = interhand["rows"]
     phase_edit_reference()
@@ -3200,6 +3465,7 @@ def main(argv=None) -> int:
         "ms_bench": bench_grad["k3_ms"],
         "parent_ms_bench": bench_grad["k3_parent_ms"],
         "bound_ms_bench": bench_grad["k3_bound_ms"],
+        "library_ms_bench": bench_grad["k3_library_ms"],
         "bit_reproducible": fit_grad["k3_bit_reproducible"],
         "equal_to_parent": fit_grad["k3_equal_to_parent"],
     }, {

@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import os
 import sys
 import time
@@ -62,7 +61,8 @@ from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                    synthetic_batch)
 from guassianhand_tpu_torch.models.one_shot import build_model, no_tf32
 from guassianhand_tpu_torch.train import checkpoints as ckpt_lib
-from guassianhand_tpu_torch.train.fit import (attach_static_features,
+from guassianhand_tpu_torch.train.fit import (FitConfig,
+                                              attach_static_features,
                                               make_fit_step, make_optimizer)
 from guassianhand_tpu_torch.train.lpips import LPIPS, lpips_from_01
 from guassianhand_tpu_torch.train.metrics import bbox_crop, psnr, ssim
@@ -248,8 +248,12 @@ def main(argv=None) -> int:
     batch = fit_batch()
     fit_cfg = cfg.fit
     if args.steps:
-        fit_cfg = dataclasses.replace(fit_cfg, epochs=1,
-                                      steps_per_epoch=args.steps)
+        # as the JAX package: a fit of --steps steps on the default
+        # schedule (milestones, gamma, accumulation and the prefix cache
+        # back to their defaults), the config's lr and loss weights kept
+        fit_cfg = FitConfig(lr=fit_cfg.lr, epochs=1,
+                            steps_per_epoch=args.steps,
+                            weights=fit_cfg.weights)
     optimizer, scheduler = make_optimizer(model, fit_cfg)
     start = 0
     if last:

@@ -7,8 +7,8 @@ avatar on InterHand2.6M, and evaluate it.
         --data_root ./processed_dataset \\
         --annot_path ./InterHand2.6M/annotations \\
         [--mano ./assets/mano] [--uv ./assets/mano_uv] [--vgg19 vgg19.pth] \\
-        [--lpips lpips.pth] [--dry_run] [--steps N] [--device cpu] \\
-        [key.sub=value ...]
+        [--lpips lpips.pth] [--dinov2 dinov2-base.bin] [--dry_run] \\
+        [--steps N] [--device cpu] [key.sub=value ...]
 
 ``--dry_run`` checks every file the three stages read (that the
 checkpoint's keys map, through the port's converter on the real state
@@ -17,15 +17,14 @@ files; the MANO pickles; the UV atlas; the metric weights), prints the
 checklist with the expected path of each, and exits 0 when every required
 one is there, else 2. Without it, the stages run, each idempotent:
 
-  1. port: ``cli/port_checkpoint.py`` -> ``<torch_ckpt>.port.ckpt``
-     (skipped when that file is newer than the source);
+  1. port: ``cli/port_checkpoint.py`` (with ``--dinov2`` where given) ->
+     ``<torch_ckpt>.port.ckpt`` (skipped when that file is newer than the
+     source);
   2. fit: ``cli/fit_one_shot.py`` on the one-shot frame with
      ``pretrained:`` the ported checkpoint (resumes from the run's
      ``last.ckpt``);
   3. eval: ``cli/fit_one_shot.py --run_val`` over the config's
      ``data.pose_sequence`` -> ``test_metrics.yml``.
-
-``--dinov2`` is refused, as ``cli/port_checkpoint.py`` refuses it.
 """
 from __future__ import annotations
 
@@ -75,10 +74,7 @@ def _checkpoint_check(args) -> Check:
     except Exception as e:  # a corrupt or foreign file: reported as missing
         c.status, c.detail = MISS, f"loads but does not map: {e!r}"
         return c
-    generator = sum(k.startswith("pointcloud_generator.") for k in unmapped)
-    c.detail = (f"{len(sd)} source keys, {len(unmapped)} unmapped "
-                f"({generator} of the point-cloud generator, not ported; "
-                f"see compat/torch_port.py)")
+    c.detail = f"{len(sd)} source keys, {len(unmapped)} unmapped"
     return c
 
 
@@ -164,6 +160,9 @@ def validate(args):
                         args.lpips or os.environ.get("GH_LPIPS_WEIGHTS"),
                         required=False,
                         detail_missing="LPIPS is not scored without them"))
+    checks.append(_file("DINOv2 state dict", args.dinov2, required=False,
+                        detail_missing="the point-cloud generator's image "
+                                       "tokenizer is not ported without it"))
     return checks
 
 
@@ -175,7 +174,9 @@ def main(argv=None) -> int:
     parser.add_argument("--mano", default=None,
                         help="the directory of MANO_RIGHT.pkl / MANO_LEFT.pkl")
     parser.add_argument("--uv", default=None, help="the mano_uv asset dir")
-    parser.add_argument("--dinov2", default=None, help="refused (not ported)")
+    parser.add_argument("--dinov2", default=None,
+                        help="a Hugging Face dinov2-base state dict for the "
+                             "point-cloud generator's image tokenizer")
     parser.add_argument("--vgg19", default=None)
     parser.add_argument("--lpips", default=None)
     parser.add_argument("--backbone_layers", type=int, default=10)
@@ -188,8 +189,6 @@ def main(argv=None) -> int:
     parser.add_argument("--dry_run", action="store_true")
     args, extras = parser.parse_known_args(argv)
     from guassianhand_tpu_torch.cli import port_checkpoint
-    if args.dinov2:
-        parser.error(port_checkpoint.DINOV2_REFUSAL)
 
     checks = validate(args)
     print("== port-and-eval artifact checklist ==")
@@ -212,9 +211,11 @@ def main(argv=None) -> int:
         print(f"[1/3] port: {out_ckpt} is up to date, skipping")
     else:
         print(f"[1/3] port: {args.torch_ckpt} -> {out_ckpt}")
-        port_checkpoint.main(["--torch_ckpt", args.torch_ckpt, "--out",
-                              out_ckpt, "--backbone_layers",
-                              str(args.backbone_layers)])
+        port_argv = ["--torch_ckpt", args.torch_ckpt, "--out", out_ckpt,
+                     "--backbone_layers", str(args.backbone_layers)]
+        if args.dinov2:
+            port_argv += ["--dinov2", args.dinov2]
+        port_checkpoint.main(port_argv)
 
     from guassianhand_tpu_torch.cli import fit_one_shot
     overrides = [f"pretrained={out_ckpt}", f"data.data_root={args.data_root}",

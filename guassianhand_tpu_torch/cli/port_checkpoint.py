@@ -6,11 +6,14 @@
 
     python -m guassianhand_tpu_torch.cli.port_checkpoint \\
         --torch_ckpt ./EXPERIMENTS/pretrain_model.ckpt \\
-        --out ./EXPERIMENTS/pretrain_model.port.ckpt [--backbone_layers 10]
+        --out ./EXPERIMENTS/pretrain_model.port.ckpt [--backbone_layers 10] \\
+        [--dinov2 dinov2-base.bin]
 
-Prints the unmapped source keys (``compat/torch_port.py`` says which are
-expected). ``--dinov2`` (a DINOv2 backbone for the image tokenizer) is
-refused: ``nn/image_tokenizer.py`` is not ported.
+``--dinov2`` takes a Hugging Face ``facebook/dinov2-base`` state dict and
+ports it into the point-cloud generator's image tokenizer
+(``pointcloud_generator.image_tokenizer.model.*``). Prints the unmapped
+source keys, the DINOv2 ones prefixed ``dinov2:``. The generator in the
+output loads with ``compat/torch_port.load_point_generator(path)``.
 """
 from __future__ import annotations
 
@@ -19,11 +22,10 @@ import sys
 
 import torch
 
-from guassianhand_tpu_torch.compat.torch_port import port_reference_checkpoint
+from guassianhand_tpu_torch.compat.torch_port import (GENERATOR,
+                                                      port_dinov2_backbone,
+                                                      port_reference_checkpoint)
 from guassianhand_tpu_torch.train.checkpoints import write_checkpoint
-
-DINOV2_REFUSAL = ("--dinov2 maps a DINOv2 backbone into nn/image_tokenizer.py, "
-                  "which the port does not have yet (ROADMAP Queue A item 12)")
 
 
 def main(argv=None) -> int:
@@ -34,26 +36,27 @@ def main(argv=None) -> int:
                         help="the reference's pretrain_model.ckpt")
     parser.add_argument("--out", required=True,
                         help="the port's checkpoint to write")
-    parser.add_argument("--dinov2", default=None, help="refused: " +
-                        DINOV2_REFUSAL)
+    parser.add_argument("--dinov2", default=None,
+                        help="a Hugging Face dinov2-base state dict to port "
+                             "into the image tokenizer")
     parser.add_argument("--backbone_layers", type=int, default=10)
     args = parser.parse_args(argv)
-    if args.dinov2:
-        parser.error(DINOV2_REFUSAL)
 
     # a Lightning checkpoint pickles more than tensors (its hyper-parameters
     # and loop state), so it is read in full, as the reference reads it
     raw = torch.load(args.torch_ckpt, map_location="cpu", weights_only=False)
     params, unmapped = port_reference_checkpoint(
         raw.get("state_dict", raw), backbone_layers=args.backbone_layers)
+    if args.dinov2:
+        dino = torch.load(args.dinov2, map_location="cpu", weights_only=False)
+        vit, dino_unmapped = port_dinov2_backbone(dino.get("state_dict", dino))
+        params.update({f"{GENERATOR}image_tokenizer.{k}": v
+                       for k, v in vit.items()})
+        unmapped += [f"dinov2:{k}" for k in dino_unmapped]
     write_checkpoint(args.out, params, keep_last_link=False)
     print(f"ported {len(params)} tensors -> {args.out}")
     if unmapped:
-        generator = sum(k.startswith("pointcloud_generator.")
-                        for k in unmapped)
-        print(f"unmapped source keys ({len(unmapped)}; {generator} of the "
-              f"point-cloud generator, which waits for "
-              f"models/point_generator.py):")
+        print(f"unmapped source keys ({len(unmapped)}):")
         for k in unmapped:
             print(f"  {k}")
     return 0

@@ -1,18 +1,25 @@
 """Turntable renders of a one-shot avatar (counterpart of
-``cli/render_360.py``): a full-width model with seeded weights, or a
+``cli/render_360.py``): the config's model with seeded weights, or a
 fitted or edited one from a checkpoint of the port (``--ckpt``, as the
 fit and edit CLIs write them), the synthetic two-hand scene in one pose,
-orbit views, PNG frames.
+orbit views; PNG frames, ``turntable.gif`` and ``turntable.mp4`` (a GIF
+where imageio has no ffmpeg plugin).
 
-  python -m guassianhand_tpu_torch.cli.render_360 --views 8 --out frames/ \
+  python -m guassianhand_tpu_torch.cli.render_360 --views 8 [--out frames/] \
       [--ckpt run/ckpts/last.ckpt] [--config configs/one_shot.yaml] \
       [key.sub=value ...]
 
-Each call to the model renders ``--views_per_call`` views of the pose in one
-stacked multi-view raster. Runs on ``cuda`` unless ``--device cpu``. The
-model is ``MODEL_CONFIG`` unless a config file or ``model.*`` overrides are
-given; ``configs/one_shot.yaml`` builds a bf16 feature pipeline
-(``model.compute_dtype``). The run prints the type the model computes in,
+As in the JAX package, the config decides the model and the scene: the
+model is the config's (the default ``ExperimentConfig``'s without
+``--config``), seeded with ``seed``, and the scene is the one the fit and
+edit CLIs fit on, ``data.height`` x ``data.width`` with
+``min(data.edge_subdivide, 1)`` subdivisions, posed from ``seed``.
+``--height``, ``--width``, ``--subdivide`` and ``--seed`` override them.
+The frames go to ``<out_dir>/<expname>/video`` unless ``--out``. Each call
+to the model renders ``--views_per_call`` views of the pose in one stacked
+multi-view raster. Runs on ``cuda`` unless ``--device cpu``.
+``configs/one_shot.yaml`` builds a bf16 feature pipeline
+(``model.compute_dtype``); the run prints the type the model computes in,
 and the config snapshot it writes beside the frames records it as
 ``compute_dtype_effective``.
 """
@@ -22,7 +29,7 @@ import argparse
 import json
 import os
 import sys
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -34,15 +41,29 @@ from guassianhand_tpu_torch.data.rays import orbit_cameras
 from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
                                                    synthetic_batch)
 from guassianhand_tpu_torch.models.one_shot import (OneShotAvatarModel,
-                                                    OneShotConfig, build_model,
-                                                    no_tf32)
+                                                    build_model, no_tf32)
 from guassianhand_tpu_torch.train.checkpoints import load_checkpoint
-from guassianhand_tpu_torch.utils.saving import save_video_frames
+from guassianhand_tpu_torch.utils.saving import (save_gif, save_video,
+                                                 save_video_frames)
 
 ORBIT_RADIUS = 0.6
-# configs/one_shot.yaml's model at its published widths, in fp32 (the yaml
-# itself asks for the bf16 feature pipeline)
-MODEL_CONFIG = OneShotConfig(narrow_color_b=True)
+
+
+def turntable_scene(cfg: ExperimentConfig, height: Optional[int] = None,
+                    width: Optional[int] = None,
+                    subdivide: Optional[int] = None,
+                    seed: Optional[int] = None, device: str = "cuda"):
+    """(scene, batch, seed) of the config's turntable, each of ``height``,
+    ``width``, ``subdivide`` and ``seed`` overriding the config's where
+    given."""
+    seed = cfg.seed if seed is None else seed
+    scene = SyntheticHandScene.build(
+        n_vertices=778,
+        subdivide=(min(cfg.data.edge_subdivide, 1) if subdivide is None
+                   else subdivide),
+        height=cfg.data.height if height is None else height,
+        width=cfg.data.width if width is None else width, device=device)
+    return scene, synthetic_batch(scene, seed=seed), seed
 
 
 def orbit_batch(scene: SyntheticHandScene, batch: Dict[str, torch.Tensor],
@@ -72,11 +93,17 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser("guassianhand-tpu-torch 360 render")
     parser.add_argument("--views", type=int, default=60)
     parser.add_argument("--views_per_call", type=int, default=4)
-    parser.add_argument("--out", default="EXPERIMENTS/render_360_torch")
-    parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--height", type=int, default=256)
-    parser.add_argument("--width", type=int, default=256)
-    parser.add_argument("--subdivide", type=int, default=2)
+    parser.add_argument("--out", default=None,
+                        help="the frames' directory (default "
+                             "<out_dir>/<expname>/video)")
+    parser.add_argument("--seed", type=int, default=None,
+                        help="the pose and the weights (default: seed)")
+    parser.add_argument("--height", type=int, default=None,
+                        help="default: data.height")
+    parser.add_argument("--width", type=int, default=None,
+                        help="default: data.width")
+    parser.add_argument("--subdivide", type=int, default=None,
+                        help="default: min(data.edge_subdivide, 1)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--config", default=None,
                         help="a YAML config whose model section builds the "
@@ -88,28 +115,29 @@ def main(argv=None) -> int:
     args, extras = parser.parse_known_args(argv)
     if args.ckpt and not os.path.exists(args.ckpt):
         parser.error(f"--ckpt {args.ckpt} does not exist")
-    cfg = (load_config(args.config, extras) if args.config or extras
-           else ExperimentConfig(model=MODEL_CONFIG))
+    cfg = load_config(args.config, extras)
+    out_dir = args.out or os.path.join(cfg.out_dir, cfg.expname, "video")
     print(compute_dtype_line(cfg.model))
-    save_config_snapshot(cfg, args.out)
+    save_config_snapshot(cfg, out_dir)
 
-    scene = SyntheticHandScene.build(n_vertices=778, subdivide=args.subdivide,
-                                     height=args.height, width=args.width,
-                                     device=args.device)
-    batch = synthetic_batch(scene, seed=args.seed)
-    model = build_model(cfg.model, seed=args.seed, device=args.device)
+    scene, batch, seed = turntable_scene(cfg, args.height, args.width,
+                                         args.subdivide, args.seed,
+                                         args.device)
+    height, width = scene.height, scene.width
+    model = build_model(cfg.model, seed=seed, device=args.device)
     if args.ckpt:
         load_checkpoint(args.ckpt, model)
     frames = []
     for first in range(0, args.views, args.views_per_call):
         n = min(args.views_per_call, args.views - first)
         out = render_request(model, orbit_batch(scene, batch, first, n,
-                                                args.views),
-                             args.height, args.width)
+                                                args.views), height, width)
         frames.extend(out["comp_rgb"][0].cpu().numpy())
-    paths = save_video_frames(args.out, frames)
-    print(json.dumps({"frames": len(paths), "out": args.out,
-                      "n_points": scene.n_points}))
+    paths = save_video_frames(out_dir, frames)
+    gif = save_gif(os.path.join(out_dir, "turntable.gif"), frames)
+    video = save_video(os.path.join(out_dir, "turntable.mp4"), frames)
+    print(json.dumps({"frames": len(paths), "out": out_dir, "gif": gif,
+                      "video": video, "n_points": scene.n_points}))
     return 0
 
 

@@ -16,7 +16,12 @@ keys, which are the reference torch names. The conversions:
   (and the port) under ``renderer``;
 - ``identity_code_infer`` exists in a JAX tree only when the model was
   initialised with ``infer_identity=True``; the port's head is always
-  there, and keeps its own values where the tree has none.
+  there, and keeps its own values where the tree has none;
+- the point-cloud generator: kernel-1 convolutions take the Dense kernel
+  as (out, in, 1[, 1]), the frozen BatchNorms' scale, bias, mean and var
+  their weight, bias and running statistics, the patch embedding's HWIO
+  kernel OIHW, the learned point tokens an ``Embedding``'s weight, and
+  ``uppers_i`` and ``layer_i`` their list index.
 
 ``load_jax_vgg`` loads the JAX ``VGGLoss``'s convolution weights (HWIO)
 into the port's ``VGGLoss`` (OIHW buffers).
@@ -30,15 +35,19 @@ import torch
 import torch.nn as nn
 
 from guassianhand_tpu_torch.models.one_shot import OneShotAvatarModel
+from guassianhand_tpu_torch.models.point_generator import SimplePointGenerator
+from guassianhand_tpu_torch.nn import snowflake as sf
 from guassianhand_tpu_torch.nn.heads import (AdditionalFeaturesFC, GSLayer,
                                              IdentityCodeInfer, SelfAttn,
                                              VertPosRefinement, VertValid)
+from guassianhand_tpu_torch.nn.image_tokenizer import ImageTokenizer
 from guassianhand_tpu_torch.nn.mlp import (MLP, MLPBlock, MLPResBlock,
                                            ResnetBlockFC)
 from guassianhand_tpu_torch.nn.pointnet import LocalPoolPointnet
 from guassianhand_tpu_torch.nn.tokenizers import (
     TriplaneLearnablePositionalEmbedding, TriplaneUpsampler)
-from guassianhand_tpu_torch.nn.transformer import (Attention, Transformer1D,
+from guassianhand_tpu_torch.nn.transformer import (AdaLayerNormContinuous,
+                                                   Attention, Transformer1D,
                                                    TransformerBlock)
 from guassianhand_tpu_torch.render.renderer import GSRenderer
 from guassianhand_tpu_torch.train.vgg import VGGLoss
@@ -116,12 +125,18 @@ def _attention(m: Attention, p: Tree) -> Tree:
             **_under("to_out.0", _linear(p["Dense_3"]))}
 
 
+def _ada_norm(m: AdaLayerNormContinuous, p: Tree) -> Tree:
+    return {**_under("linear1", _linear(p["Dense_0"])),
+            **_under("linear2", _linear(p["Dense_1"]))}
+
+
 def _transformer_block(m: TransformerBlock, p: Tree) -> Tree:
-    return {**_under("norm1", _norm(p["norm1"])),
+    norm = _ada_norm if m.modulated else (lambda _, q: _norm(q))
+    return {**_under("norm1", norm(m.norm1, p["norm1"])),
             **_under("attn1", _attention(m.attn1, p["attn1"])),
-            **_under("norm2", _norm(p["norm2"])),
+            **_under("norm2", norm(m.norm2, p["norm2"])),
             **_under("attn2", _attention(m.attn2, p["attn2"])),
-            **_under("norm3", _norm(p["norm3"])),
+            **_under("norm3", norm(m.norm3, p["norm3"])),
             **_under("ff.net.0.proj", _linear(p["ff"]["GEGLU_0"]["Dense_0"])),
             **_under("ff.net.2", _linear(p["ff"]["Dense_0"]))}
 
@@ -191,6 +206,140 @@ def _renderer(m: GSRenderer, p: Tree) -> Tree:
     return sd
 
 
+def _point_conv(p: Tree, ndim: int = 1) -> Tree:
+    """Dense -> kernel-1 Conv1d (ndim 1) or Conv2d (ndim 2)."""
+    sd = _linear(p)
+    sd["weight"] = sd["weight"].reshape(sd["weight"].shape + (1,) * ndim)
+    return sd
+
+
+def _batch_norm(p: Tree) -> Tree:
+    return {"weight": _np(p["scale"]), "bias": _np(p["bias"]),
+            "running_mean": _np(p["mean"]), "running_var": _np(p["var"]),
+            "num_batches_tracked": np.array(0, np.int64)}
+
+
+def _mlp_conv(m: sf.MLPConv, p: Tree) -> Tree:
+    n = sum(isinstance(x, sf.PointConv) for x in m.mlp)
+    sd = {}
+    for i in range(n):
+        sd.update(_under(f"mlp.{2 * i}", _point_conv(p[f"Dense_{i}"])))
+    return sd
+
+
+def _mlp_res(m: sf.MLPRes, p: Tree) -> Tree:
+    sd = {}
+    for k in ("conv_1", "conv_2", "conv_shortcut"):
+        sd.update(_under(k, _point_conv(p[k])))
+    return sd
+
+
+def _conv_bn_conv(m: sf.ConvBNConv, p: Tree) -> Tree:
+    return {**_under("0", _point_conv(p["fc1"], 2)),
+            **_under("1", _batch_norm(p["bn"])),
+            **_under("3", _point_conv(p["fc2"], 2))}
+
+
+def _skip_transformer(m: sf.SkipTransformer, p: Tree) -> Tree:
+    sd = {**_under("mlp_v", _mlp_res(m.mlp_v, p["mlp_v"])),
+          **_under("pos_mlp", _conv_bn_conv(m.pos_mlp, p["pos_mlp"])),
+          **_under("attn_mlp", _conv_bn_conv(m.attn_mlp, p["attn_mlp"]))}
+    for k in ("conv_key", "conv_query", "conv_value", "conv_end"):
+        sd.update(_under(k, _point_conv(p[k])))
+    return sd
+
+
+def _cross_attn(m: sf.ResidualCrossAttn, p: Tree) -> Tree:
+    sd = {**_under("norm", _norm(p["norm"])),
+          **_under("norm2", _norm(p["norm2"]))}
+    for k in ("to_q", "to_k", "to_v", "to_out", "ff1", "ff2"):
+        sd.update(_under(k, _linear(p[k])))
+    return sd
+
+
+def _spd(m: nn.Module, p: Tree) -> Tree:
+    """SPDpp, SPD or SPDCrossAttn."""
+    sd = {"ps.weight": _np(p["ps"]["kernel"]),
+          **_under("skip_transformer",
+                   _skip_transformer(m.skip_transformer,
+                                     p["skip_transformer"])),
+          **_under("mlp_delta_feature",
+                   _mlp_res(m.mlp_delta_feature, p["mlp_delta_feature"]))}
+    for k in ("mlp_1", "mlp_2", "mlp_ps", "mlp_delta"):
+        sd.update(_under(k, _mlp_conv(getattr(m, k), p[k])))
+    if isinstance(m, sf.SPDCrossAttn):
+        sd.update(_under("cross_attn", _cross_attn(m.cross_attn,
+                                                   p["cross_attn"])))
+    return sd
+
+
+def _snowflake_decoder(m: sf.SnowflakeDecoder, p: Tree) -> Tree:
+    sd = _under("mlp_feat_cond", _mlp_conv(m.mlp_feat_cond,
+                                           p["mlp_feat_cond"]))
+    for i, upper in enumerate(m.uppers):
+        sd.update(_under(f"uppers.{i}", _spd(upper, p[f"uppers_{i}"])))
+    return sd
+
+
+def _pointnet2(m: nn.Module, p: Tree) -> Tree:
+    """PointNetSAModuleKNN or PointNetFPModule: conv{i}, bn{i}."""
+    sd = {}
+    for i in range(m.n_layers):
+        sd.update(_under(f"conv{i}", _point_conv(p[f"conv{i}"], 2)))
+        if f"bn{i}" in p:
+            sd.update(_under(f"bn{i}", _batch_norm(p[f"bn{i}"])))
+    return sd
+
+
+def _image_tokenizer(m: ImageTokenizer, p: Tree) -> Tree:
+    """The JAX tree of a tokenizer initialised without a condition has no
+    modulations; the port's keep their values then."""
+    k = _np(p["patch_embed"]["kernel"])                  # (kh, kw, in, out)
+    sd = {"model.embeddings.cls_token": _np(p["cls_token"]),
+          "model.embeddings.position_embeddings": _np(p["pos_embed"]),
+          "model.embeddings.patch_embeddings.projection.weight":
+              np.ascontiguousarray(k.transpose(3, 2, 0, 1)),
+          "model.embeddings.patch_embeddings.projection.bias":
+              _np(p["patch_embed"]["bias"]),
+          **_under("model.layernorm", _norm(p["layernorm"]))}
+    for i in range(len(m.model.encoder.layer)):
+        q = p[f"layer_{i}"]
+        a = q["attention"]
+        sd.update(_under(f"model.encoder.layer.{i}", {
+            **_under("norm1", _norm(q["norm1"])),
+            **_under("norm2", _norm(q["norm2"])),
+            **_under("attention.attention.query", _linear(a["query"])),
+            **_under("attention.attention.key", _linear(a["key"])),
+            **_under("attention.attention.value", _linear(a["value"])),
+            **_under("attention.output.dense", _linear(a["dense"])),
+            "layer_scale1.lambda1": _np(q["layer_scale1"]["lambda1"]),
+            "layer_scale2.lambda1": _np(q["layer_scale2"]["lambda1"]),
+            **_under("mlp.fc1", _linear(q["fc1"])),
+            **_under("mlp.fc2", _linear(q["fc2"]))}))
+        for j, norm in enumerate(("norm1", "norm2")):
+            mod = q.get(f"{norm}_modulation")
+            sd.update(_under(f"modulations.{2 * i + j}.linear2", _linear(
+                mod["linear2"]) if mod is not None else {
+                    k: v.detach().cpu().numpy() for k, v in
+                    m.modulations[2 * i + j].linear2.state_dict().items()}))
+    return sd
+
+
+def _point_generator(m: SimplePointGenerator, p: Tree) -> Tree:
+    return {
+        **_under("camera_embedder", _mlp(m.camera_embedder,
+                                         p["camera_embedder"])),
+        **_under("image_tokenizer", _image_tokenizer(m.image_tokenizer,
+                                                     p["image_tokenizer"])),
+        "tokenizer.pcl_embeddings.weight":
+            _np(p["tokenizer"]["pcl_embeddings"]),
+        **_under("backbone", _transformer1d(m.backbone, p["backbone"])),
+        **_under("post_processor.point_layer",
+                 _linear(p["post_processor"]["point_layer"])),
+        **_under("pointcloud_upsampling.decoder", _snowflake_decoder(
+            m.pointcloud_upsampling["decoder"], p["pointcloud_upsampling"]))}
+
+
 def _model(m: OneShotAvatarModel, p: Tree) -> Tree:
     sd = {k: _np(p[k]) for k in PER_IDENTITY}
     for name, fn in (("camera_embedder", _mlp), ("pose_embedder", _mlp),
@@ -224,6 +373,10 @@ _CONVERTERS: Dict[type, Callable[[nn.Module, Tree], Tree]] = {
     GSLayer: _gs_layer, VertValid: _valid_head,
     VertPosRefinement: _valid_head, AdditionalFeaturesFC: _additional,
     SelfAttn: _self_attn, IdentityCodeInfer: _identity_code_infer,
+    SimplePointGenerator: _point_generator, ImageTokenizer: _image_tokenizer,
+    sf.SnowflakeDecoder: _snowflake_decoder, sf.SPDpp: _spd, sf.SPD: _spd,
+    sf.SPDCrossAttn: _spd, sf.SkipTransformer: _skip_transformer,
+    sf.PointNetSAModuleKNN: _pointnet2, sf.PointNetFPModule: _pointnet2,
 }
 
 

@@ -72,19 +72,27 @@ def _adapt_color_b_layout(name: str, val: torch.Tensor,
     return None
 
 
-def load_params_partial(path: str,
-                        model: torch.nn.Module) -> Dict[str, list]:
+def load_params_partial(path: str, model: torch.nn.Module,
+                        prefix: str = "") -> Dict[str, list]:
     """strict=False restore (the JAX package's ``load_params_partial``): a
     tensor of the checkpoint (``save_checkpoint``'s or
     ``cli/port_checkpoint.py``'s file, or a bare state dict) replaces the
     model's parameter or buffer of its name where the shapes agree, after
     ``color_b``'s 48 / 3 channel reconciliation; everything else keeps its
-    value. Prints ``restored N/M``. Returns the names restored, missing
-    (the model's, kept) and unexpected (the checkpoint's, unused). The JAX
-    package also reconciles flax's scanned and unrolled transformer trees;
-    the port has one layout, so it needs no such step."""
+    value. With a ``prefix`` only the checkpoint's tensors under it are
+    read, the prefix stripped: ``prefix="pointcloud_generator."`` loads a
+    ported reference checkpoint's point-cloud generator into a
+    ``models/point_generator.SimplePointGenerator``. Prints ``restored
+    N/M``, and the top-level modules of the checkpoint that the model does
+    not have, as the JAX package's ``merge_ported`` reports them absent.
+    Returns the names restored, missing (the model's, kept) and unexpected
+    (the checkpoint's, unused). The JAX package also reconciles flax's
+    scanned and unrolled transformer trees; the port has one layout, so it
+    needs no such step."""
     state = torch.load(path, map_location="cpu", weights_only=True)
-    ck = state.get("params", state)
+    ck = {k.removeprefix(prefix): v
+          for k, v in state.get("params", state).items()
+          if k.startswith(prefix)}
     own = model.state_dict()
     restored = {}
     for name, cur in own.items():
@@ -96,9 +104,19 @@ def load_params_partial(path: str,
     model.load_state_dict(restored, strict=False)
     print(f"load_params_partial: restored {len(restored)}/{len(own)} "
           f"tensors from {path}")
+    unexpected = sorted(n for n in ck if n not in own)
+    own_modules = {n.split(".")[0] for n in own}
+    absent: Dict[str, int] = {}
+    for n in unexpected:
+        top = n.split(".")[0]
+        if top not in own_modules:
+            absent[top] = absent.get(top, 0) + 1
+    if absent:
+        print("  skipped: " + ", ".join(f"{k} (absent, {v} tensors)"
+                                        for k, v in sorted(absent.items())))
     return {"restored": sorted(restored),
             "missing": sorted(n for n in own if n not in restored),
-            "unexpected": sorted(n for n in ck if n not in own)}
+            "unexpected": unexpected}
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

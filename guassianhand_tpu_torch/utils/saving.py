@@ -1,6 +1,8 @@
-"""Image, grid, frame-sequence and PLY export (counterpart of
+"""Image, grid, frame-sequence, GIF, video and PLY export (counterpart of
 ``utils/saving.py``). PNGs are written with the standard library's
-``zlib``, so the port needs no imaging package."""
+``zlib``; the turntable's GIF needs PIL, imported where it is written, and
+its video imageio with an ffmpeg plugin, without which it falls back to a
+GIF, as in the JAX package."""
 from __future__ import annotations
 
 import os
@@ -43,6 +45,33 @@ def save_image(path: str, img) -> str:
 def save_video_frames(dirname: str, frames: Iterable) -> list:
     return [save_image(os.path.join(dirname, f"{i:04d}.png"), f)
             for i, f in enumerate(frames)]
+
+
+def save_gif(path: str, frames: Sequence, fps: int = 20) -> str:
+    """An animated GIF of float [0, 1] (or uint8) frames, looping."""
+    import PIL.Image
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    imgs = [PIL.Image.fromarray(to_uint8(f)) for f in frames]
+    imgs[0].save(path, save_all=True, append_images=imgs[1:],
+                 duration=int(1000 / fps), loop=0)
+    return path
+
+
+def save_video(path: str, frames: Sequence, fps: int = 20) -> str:
+    """A video through imageio's ffmpeg plugin; where imageio or a backend
+    for the file's extension is missing, a GIF beside it instead. Returns
+    the path written."""
+    try:
+        import imageio.v2 as imageio
+
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with imageio.get_writer(path, fps=fps) as w:
+            for f in frames:
+                w.append_data(to_uint8(f))
+        return path
+    except (ImportError, ValueError):   # ValueError: no backend for it
+        return save_gif(os.path.splitext(path)[0] + ".gif", frames, fps=fps)
 
 
 def save_image_grid(path: str, imgs: Sequence, cols: Optional[int] = None

@@ -1,12 +1,13 @@
 """The PyTorch port's reference-checkpoint path on the CPU: the converter
 (``compat/torch_port.py``) against the published checkpoint's key spec
 (``tests/fixtures/reference_tgs_spec.json``) and against the JAX package's
-converter, the strict=False loader behind ``pretrained:``
-(``train/checkpoints.load_params_partial``), ``cli/port_checkpoint.py`` and
-``cli/port_and_eval.py`` (its ``--dry_run`` checklist, and its three stages
-end to end at a small size on the fake InterHand2.6M layout of
-``tests/torch_interhand_layout.py``: the fit CLI's InterHand2.6M fit and
-``--run_val``).
+converter (the avatar's keys, and the point-cloud generator's and the
+second upsampler's), the strict=False loader behind ``pretrained:``
+(``train/checkpoints.load_params_partial``), ``cli/port_checkpoint.py``
+(with ``--dinov2``) and ``cli/port_and_eval.py`` (its ``--dry_run``
+checklist, and its three stages end to end at a small size on the fake
+InterHand2.6M layout of ``tests/torch_interhand_layout.py``: the fit CLI's
+InterHand2.6M fit and ``--run_val``).
 
 Tolerances: none; every comparison is exact (parameters copied or
 reshaped, and renders of equal parameters).
@@ -26,18 +27,21 @@ from guassianhand_tpu.models.one_shot import OneShotAvatarModel as JModel
 from guassianhand_tpu_torch.cli import fit_one_shot, port_and_eval
 from guassianhand_tpu_torch.cli import port_checkpoint
 from guassianhand_tpu_torch.compat import torch_port
-from guassianhand_tpu_torch.compat.from_jax import load_jax_params
+from guassianhand_tpu_torch.compat.from_jax import (load_jax_params,
+                                                    state_dict_from_jax)
 from guassianhand_tpu_torch.config import load_config
 from guassianhand_tpu_torch.data.synthetic import SyntheticHandScene as TScene
 from guassianhand_tpu_torch.data.synthetic import synthetic_batch as t_batch
 from guassianhand_tpu_torch.models.one_shot import (OneShotAvatarModel,
                                                     OneShotConfig)
+from guassianhand_tpu_torch.models.point_generator import SimplePointGenerator
+from guassianhand_tpu_torch.nn.tokenizers import TriplaneUpsampler
 from guassianhand_tpu_torch.train import checkpoints
 from tests.test_model import HW, TINY
 from tests.test_torch_eval import JAX_METRIC_KEYS, TINY_ARGS
 from tests.test_torch_train import JTINY
-from tests.torch_parity import (one_torch_thread,  # noqa: F401
-                                port_model_config)
+from tests.torch_parity import (hf_dinov2,  # noqa: F401
+                                one_torch_thread, port_model_config)
 from tests import torch_interhand_layout as ih_layout
 
 SPEC = json.loads((Path(__file__).parent / "fixtures" /
@@ -45,6 +49,9 @@ SPEC = json.loads((Path(__file__).parent / "fixtures" /
 GENERATOR = "pointcloud_generator."
 # the reference's upsampler that no forward reads (compat/torch_port.py)
 DEAD = ("post_processor.upsample.bias", "post_processor.upsample.weight")
+# what the loader says of the keys the avatar model has no module for
+ABSENT = "skipped: pointcloud_generator (absent, {} tensors), " \
+         "post_processor (absent, 2 tensors)"
 
 
 def reference_state_dict(model: torch.nn.Module, seed: int) -> dict:
@@ -63,22 +70,73 @@ def reference_state_dict(model: torch.nn.Module, seed: int) -> dict:
 
 def test_converter_maps_the_reference_spec():
     """Every key of the published checkpoint's spec maps, by name and at
-    its shape (identity codes reshaped), to the published-width model's
-    state dict (built on the meta device: nothing allocated), except the
-    point-cloud generator's 375 keys and the reference's unread upsampler,
-    which are reported unmapped."""
+    its shape (identity codes reshaped), to a module of the port (built on
+    the meta device: nothing allocated): the published-width avatar model,
+    the point-cloud generator (its 375 keys) and the reference's second
+    upsampler; none is unmapped, as none is in the JAX package's
+    converter."""
     sd = {k: torch.empty(shape, device="meta") for k, shape in SPEC.items()}
     ported, unmapped = torch_port.port_reference_checkpoint(sd)
+    assert unmapped == [] == jport.port_reference_checkpoint(
+        {k: np.zeros(shape, np.float32) for k, shape in SPEC.items()})[1]
     generator = sorted(k for k in SPEC if k.startswith(GENERATOR))
-    assert len(generator) == 375
-    assert unmapped == sorted(generator + list(DEAD))
+    assert len(generator) == 375 and len(ported) == len(SPEC)
     with torch.device("meta"):
         own = OneShotAvatarModel(OneShotConfig()).state_dict()
-    assert len(ported) == len(SPEC) - len(unmapped)
+        own.update({GENERATOR + k: v for k, v in
+                    SimplePointGenerator().state_dict().items()})
+        own.update({"post_processor." + k: v for k, v in
+                    TriplaneUpsampler().state_dict().items()})
     for k, v in ported.items():
         assert v.shape == own[k].shape, k
-    assert set(own) - set(ported) == {k for k in own
-                                      if k.startswith("identity_code_infer.")}
+    missing = set(own) - set(ported)
+    assert all(k.startswith(("identity_code_infer.",
+                             GENERATOR + "image_tokenizer.model."))
+               for k in missing)
+
+
+def with_vit_placeholders(tree):
+    """JAX's converted generator tree carries the tokenizer's modulations
+    only (the ViT's weights are not in the reference checkpoint): the ViT's
+    leaves filled with placeholders, so that the tree maps as a whole."""
+    dummy = {"kernel": np.zeros((1, 1, 1, 1), np.float32),
+             "bias": np.zeros(1, np.float32),
+             "scale": np.zeros(1, np.float32)}
+    tok = tree["image_tokenizer"]
+    tok.update(cls_token=dummy["bias"], pos_embed=dummy["bias"],
+               patch_embed=dummy, layernorm=dummy)
+    for layer in tok.values():
+        if isinstance(layer, dict) and "norm1_modulation" in layer:
+            layer.update({k: dummy for k in ("norm1", "norm2", "fc1", "fc2")})
+            layer["attention"] = {k: dummy for k in
+                                  ("query", "key", "value", "dense")}
+            layer["layer_scale1"] = layer["layer_scale2"] = {
+                "lambda1": dummy["bias"]}
+    return tree
+
+
+def test_generator_keys_equal_the_jax_converters():
+    """The spec's 375 generator keys and the second upsampler's 2 on
+    seeded values: each tensor the port's converter keeps equals, to the
+    bit, JAX's converter's tree carried into the port's layout
+    (``compat/from_jax``), BatchNorm counters aside (JAX drops them)."""
+    rng = np.random.default_rng(0)
+    sd = {f"model.{k}": rng.standard_normal(size=shape, dtype=np.float32)
+          for k, shape in SPEC.items()
+          if k.startswith((GENERATOR, "post_processor."))}
+    ported, unmapped = torch_port.port_reference_checkpoint(sd)
+    j_ported, j_unmapped = jport.port_reference_checkpoint(sd)
+    assert unmapped == j_unmapped == [] and len(ported) == 377
+    with torch.device("meta"):
+        generator, upsampler = SimplePointGenerator(), TriplaneUpsampler()
+    want = {GENERATOR + k: v for k, v in state_dict_from_jax(
+        generator, with_vit_placeholders(j_ported["pointcloud_generator"])
+    ).items()}
+    want.update({"post_processor." + k: v for k, v in state_dict_from_jax(
+        upsampler, j_ported["post_processor"]).items()})
+    for k, v in ported.items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(v, torch.from_numpy(want[k])), k
 
 
 def test_both_converters_give_the_same_forward():
@@ -114,9 +172,11 @@ def test_both_converters_give_the_same_forward():
     ported, unmapped = torch_port.port_reference_checkpoint(
         ref, backbone_layers=1)
     missing, unexpected = model.load_state_dict(ported, strict=False)
-    assert unexpected == [] and all(
+    assert unmapped == [] and all(
         k.startswith("identity_code_infer.") for k in missing)
-    assert [k for k in unmapped if not k.startswith(GENERATOR)] == list(DEAD)
+    assert sorted(unexpected) == sorted(
+        k.removeprefix("model.") for k in ref
+        if k.startswith(("model." + GENERATOR, "model.post_processor.")))
     # the identity-code head, which neither checkpoint carries, as it is
     model.identity_code_infer.load_state_dict(
         via_jax.identity_code_infer.state_dict())
@@ -185,9 +245,12 @@ def test_port_checkpoint_cli_output_loads_through_pretrained(tmp_path,
                                                              capsys):
     """cli/port_checkpoint.py writes the port's checkpoint from a reference
     one; loaded (``load_params_partial``) into a model of another seed it
-    gives back every parameter the reference carried, bit for bit, and
-    keeps only the identity-code head; it prints the unmapped keys.
-    ``--dinov2`` is refused with the reason."""
+    gives back every parameter the reference carried, bit for bit, keeps
+    only the identity-code head and says which of the checkpoint's modules
+    the avatar does not have. With ``--dinov2`` a seeded Hugging Face state
+    dict goes into the generator's image tokenizer, its unmapped key
+    printed with a ``dinov2:`` prefix, and comes back to the bit in the
+    generator that ``load_point_generator`` builds from the output."""
     source = small_model(False, 0)
     ref = reference_state_dict(source, seed=2)
     src = tmp_path / "pretrain_model.ckpt"
@@ -196,20 +259,37 @@ def test_port_checkpoint_cli_output_loads_through_pretrained(tmp_path,
     assert port_checkpoint.main(["--torch_ckpt", str(src), "--out", str(out),
                                  "--backbone_layers", "1"]) == 0
     said = capsys.readouterr().out
-    n_ported = len(ref) - 6
-    assert f"ported {n_ported} tensors" in said
-    assert "unmapped source keys (6; 4 of the point-cloud generator" in said
+    assert f"ported {len(ref)} tensors" in said
+    assert "unmapped" not in said
+    n_avatar = len(ref) - 6       # the generator's 4 and the upsampler's 2
     target = small_model(False, 5)
     got = checkpoints.load_params_partial(str(out), target)
-    assert f"restored {n_ported}/" in capsys.readouterr().out
+    said = capsys.readouterr().out
+    assert f"restored {n_avatar}/" in said and ABSENT.format(4) in said
     assert all(k.startswith("identity_code_infer.") for k in got["missing"])
     want = source.state_dict()
     for k in got["restored"]:
         assert torch.equal(target.state_dict()[k], want[k]), k
-    with pytest.raises(SystemExit):
-        port_checkpoint.main(["--torch_ckpt", str(src), "--out", str(out),
-                              "--dinov2", "dinov2.bin"])
-    assert "nn/image_tokenizer.py" in capsys.readouterr().err
+
+    hf = hf_dinov2()
+    torch.save(hf, tmp_path / "dinov2.bin")
+    assert port_checkpoint.main(["--torch_ckpt", str(src), "--out", str(out),
+                                 "--backbone_layers", "1", "--dinov2",
+                                 str(tmp_path / "dinov2.bin")]) == 0
+    said = capsys.readouterr().out
+    assert f"ported {len(ref) + len(hf) - 2} tensors" in said
+    assert "unmapped source keys (1):\n  dinov2:classifier.weight" in said
+    generator = torch_port.load_point_generator(
+        str(out), device="cpu", num_pcl=64, backbone_layers=1, width=64,
+        layers=2, heads=2)
+    n_vit = len(hf) - 2
+    assert f"restored {n_vit}/{len(generator.state_dict())}" in \
+        capsys.readouterr().out
+    own = generator.state_dict()
+    for k, v in hf.items():
+        if k.startswith("dinov2.") and "mask_token" not in k:
+            name = "image_tokenizer.model." + k.removeprefix("dinov2.")
+            assert torch.equal(own[name], v), k
 
 
 @pytest.fixture(scope="module")
@@ -231,8 +311,7 @@ def test_port_and_eval_dry_run(layout, tmp_path, capsys):
             "--dry_run"]
     assert port_and_eval.main(argv) == 0
     out = capsys.readouterr().out
-    assert f"{len(SPEC)} source keys, 377 unmapped (375 of the point-cloud " \
-           f"generator" in out
+    assert f"{len(SPEC)} source keys, 0 unmapped" in out
     assert "ready to execute" in out
     image = Path(layout["data_root"]) / "test" / "image" / "capture0" / \
         "cam0" / "frame0.jpg"
@@ -248,14 +327,18 @@ def test_port_and_eval_dry_run(layout, tmp_path, capsys):
 
 def test_port_and_eval_runs_its_three_stages(layout, tmp_path):
     """cli/port_and_eval.py end to end on the CPU at a small size: the
-    reference checkpoint ported, cli/fit_one_shot.py's InterHand2.6M fit
-    (no --synthetic) from it for 2 steps, its PLY and checkpoint written,
-    then --run_val over oneshot_reg_i's 14 frames into test_metrics.yml
-    with the JAX package's keys."""
+    reference checkpoint ported with a DINOv2 state dict (``--dinov2``),
+    cli/fit_one_shot.py's InterHand2.6M fit (no --synthetic) from it for 2
+    steps, its PLY and checkpoint written, then --run_val over
+    oneshot_reg_i's 14 frames into test_metrics.yml with the JAX package's
+    keys."""
     src = tmp_path / "pretrain_model.ckpt"
     torch.save({"state_dict": reference_state_dict(small_model(False, 0),
                                                    seed=3)}, src)
-    argv = ["--torch_ckpt", str(src), "--data_root", layout["data_root"],
+    hf = hf_dinov2()
+    torch.save(hf, tmp_path / "dinov2.bin")
+    argv = ["--torch_ckpt", str(src), "--dinov2", str(tmp_path / "dinov2.bin"),
+            "--data_root", layout["data_root"],
             "--annot_path", layout["annot_path"], "--mano", layout["mano"],
             "--backbone_layers", "1", "--steps", "2", "--device", "cpu",
             "--expname", "ih", "data.dataset=interhand",
@@ -263,7 +346,10 @@ def test_port_and_eval_runs_its_three_stages(layout, tmp_path):
             f"data.height={HW}", f"data.width={HW}",
             "--no_images", f"out_dir={tmp_path}", "fit.weights.vgg=0"]
     assert port_and_eval.main(argv + SMALL_ARGS) == 0
-    assert Path(f"{src}.port.ckpt").is_file()
+    ported = torch.load(f"{src}.port.ckpt", weights_only=True)["params"]
+    key = "embeddings.patch_embeddings.projection.weight"
+    assert torch.equal(ported[f"{GENERATOR}image_tokenizer.model.{key}"],
+                       hf[f"dinov2.{key}"])
     run = tmp_path / "ih"
     assert (run / "3dgs" / "fitted.ply").is_file()
     assert (run / "ckpts" / "last.ckpt").exists()

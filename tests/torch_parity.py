@@ -124,6 +124,74 @@ def random_params(shapes, seed: int):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+# the scaled tolerance of the point-cloud generator's modules: the rounding
+# of matmuls and reductions that XLA and PyTorch order apart, relative to
+# the output's scale
+RTOL_SCALED = 1e-4
+
+
+def scaled_close(got, want, rtol: float = RTOL_SCALED) -> None:
+    """max |got - want| <= rtol * max(1, max |want|)."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = float(np.max(np.abs(got - want)))
+    assert err <= rtol * max(1.0, float(np.max(np.abs(want)))), err
+
+
+def positive_variances(params):
+    """The frozen BatchNorms' ``var`` leaves moved into [0.5, 1.5]."""
+    def leaf(path, x):
+        name = str(getattr(path[-1], "key", path[-1]))
+        return 0.5 + np.abs(x) % 1.0 if name == "var" else x
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
+def carry(jmodule, tmodule, *args, seed=0):
+    """Seeded parameters of ``jmodule`` (for ``args``) in both modules."""
+    shapes = jax.eval_shape(jmodule.init, jax.random.PRNGKey(0), *args)
+    params = positive_variances(random_params(shapes, seed))
+    load_jax_params(tmodule, params)
+    return params
+
+
+def hf_dinov2(width: int = 64, layers: int = 2, seed: int = 9) -> dict:
+    """A seeded state dict in the Hugging Face ``Dinov2Model`` layout (as
+    tests/test_compat.py::test_port_dinov2_backbone builds one), keys
+    prefixed ``dinov2.`` as a ``Dinov2ForImageClassification`` stores them,
+    with its mask token and one key no model has."""
+    rng = np.random.RandomState(seed)
+
+    def r(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    sd = {"embeddings.cls_token": r(1, 1, width),
+          "embeddings.mask_token": r(1, width),
+          "embeddings.position_embeddings": r(1, 257, width),
+          "embeddings.patch_embeddings.projection.weight": r(width, 3, 14, 14)
+          / 24.0,
+          "embeddings.patch_embeddings.projection.bias": r(width),
+          "layernorm.weight": r(width), "layernorm.bias": r(width),
+          "classifier.weight": r(10, width)}
+    for i in range(layers):
+        p = f"encoder.layer.{i}"
+        for name, shape in (("attention.attention.query", (width, width)),
+                            ("attention.attention.key", (width, width)),
+                            ("attention.attention.value", (width, width)),
+                            ("attention.output.dense", (width, width)),
+                            ("mlp.fc1", (4 * width, width)),
+                            ("mlp.fc2", (width, 4 * width))):
+            sd[f"{p}.{name}.weight"] = r(*shape) / np.sqrt(shape[1])
+            sd[f"{p}.{name}.bias"] = r(shape[0])
+        for name in ("norm1", "norm2"):
+            sd[f"{p}.{name}.weight"] = 1.0 + 0.1 * r(width)
+            sd[f"{p}.{name}.bias"] = r(width)
+        sd[f"{p}.layer_scale1.lambda1"] = r(width)
+        sd[f"{p}.layer_scale2.lambda1"] = r(width)
+    return {("dinov2." + k if "classifier" not in k else k): v
+            for k, v in sd.items()}
+
+
 def port_raster_config(cfg) -> TRasterizeConfig:
     assert cfg.opacity_cull, "the port always applies the exact opacity cull"
     assert cfg.tile_size == TILE, f"the port composites {TILE}-pixel tiles"
