@@ -10,6 +10,26 @@ Phases, each reported on its own line:
      flash_attention_bf16.cu) compiled from csrc/ with nvcc for sm_90a, one
      nvcc each, all at once, with ptxas' registers, shared memory and
      spills;
+  2a. sharded: 4 ranks spawned on the one card (gloo, every rank's tensors
+     on cuda:0; they load the kernels just built): sharded_raster_4x256,
+     the synthetic scene's 30,808 decoration Gaussians at 256^2 through
+     parallel/raster_shard.py's all_to_all exchange on data 1 x model 4
+     with the suggested capacity, held against the unsharded
+     rasterize_multiview at JAX's at-scale gates (render max |d| <= 2e-3
+     and at most 1e-4 of pixels over 1e-5; xyz and shs gradients with at
+     most 1e-4 of elements over 1e-4 * scale + 1e-3 * |ref| and max |d|
+     <= 2e-2 * scale), overflow 0 and more than 50,000 pairs exchanged;
+     sharded_fit_2x2_bf16, the flagship with both switches and the
+     exchange required, 3 sharded fit steps on data 2 x model 2 (B = 2,
+     poses from seeds 0 and 1), the loss finite and falling, the
+     replicas' parameters bit-identical after each step, K1-K4 and the
+     bf16 K5 launched on every rank, step 1's loss within 1e-4 of the
+     mean of two unsharded B = 1 steps and its gradients at the at-scale
+     gate (identity_code and map_bias, behind the bf16 feature pipeline,
+     in norm against the float32 twin instead), and one sharded step of
+     the float32 twin with its loss within 1e-4 of the twin's unsharded
+     steps and every gradient at the at-scale gate; the backend, each rank's
+     exchange figures, collectives and launches a step logged;
   3. kernel vs plain: the forward kernel held against its plain PyTorch
      twin at the bench scene (49,152 random Gaussians, 512^2), at edge
      cases the main path does not reach (odd image sizes, stacked views,
@@ -2681,6 +2701,414 @@ def phase_point_generator(info: dict, out_dir: str) -> dict:
     return rows
 
 
+# --- [sharded]: the sharded fit step on 4 ranks of one card ----------------
+SHARDED_RANKS = 4
+# NCCL refuses two ranks on one GPU; gloo runs every collective of
+# parallel/comm.py on CUDA tensors (all_to_all_single, all_gather,
+# all_reduce, broadcast), so the ranks share cuda:0 through gloo
+SHARDED_BACKEND = "gloo"
+SHARDED_FIT_STEPS = 3
+SHARDED_TIMEOUT_S = 600
+# JAX's at-scale gates (tests/test_parallel.py::
+# test_exchange_tight_capacity_at_scale): render max |d| and the share of
+# pixels over SHARD_PIXEL_EPS; gradients: the share of elements over
+# 1e-4 * scale + 1e-3 * |ref| and the largest |d| over scale
+SHARD_RGB_MAX, SHARD_PIXEL_EPS, SHARD_PIXEL_SHARE = 2e-3, 1e-5, 1e-4
+SHARD_GRAD_SHARE, SHARD_GRAD_MAX = 1e-4, 2e-2
+SHARD_LOSS_RTOL = 1e-4
+
+
+def at_scale_gate(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """JAX's at-scale gradient gate of ``got`` against ``want``."""
+    d = (got - want).abs()
+    scale = float(want.abs().max()) + 1e-12
+    bad = d > 1e-4 * scale + 1e-3 * want.abs()
+    row = {"max_abs_err": float(d.max()) if d.numel() else 0.0,
+           "scale": scale, "bad_share": float(bad.float().mean())}
+    row["ok"] = (row["bad_share"] <= SHARD_GRAD_SHARE
+                 and row["max_abs_err"] <= SHARD_GRAD_MAX * scale)
+    return row
+
+
+def sharded_raster_case(mesh) -> dict:
+    """sharded_raster_4x256 on this rank (data 1 x model 4): the at-scale
+    case of tests/test_parallel.py (the synthetic scene's 15,404 points and
+    a copy offset by 1e-3: 30,808 decoration Gaussians at 256^2, its render
+    view) through sharded_rasterize_batch with the port's suggested
+    capacity; the loss mean |rgb - target|, its xyz and shs gradients
+    summed over the model group; on rank 0 held against the unsharded
+    rasterize_multiview on the card."""
+    from guassianhand_tpu_torch.core.gaussians import Gaussians
+    from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
+                                                       synthetic_batch)
+    from guassianhand_tpu_torch.ops.rasterize import rasterize_multiview
+    from guassianhand_tpu_torch.parallel import comm
+    from guassianhand_tpu_torch.parallel.raster_shard import (
+        exchange_balance_stats, sharded_rasterize_batch)
+    scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
+                                     width=HW, device="cuda")
+    batch = synthetic_batch(scene, seed=0)
+    pts = batch["points"][0]
+    gs = scene.decoration_gaussians(torch.cat([pts, pts + 1e-3]))
+    w2cs, ks = batch["w2c_render"], batch["K_render"]
+    bg = torch.tensor([[0.1, 0.2, 0.3]], device="cuda")
+    target = torch.as_tensor(np.random.RandomState(1).uniform(
+        0, 1, (1, 1, HW, HW, 3)), dtype=torch.float32, device="cuda")
+    stats = exchange_balance_stats([gs], w2cs, ks, height=HW, width=HW,
+                                   n_model=mesh.n_model)
+    cap = stats["suggested_capacity"]
+
+    def run(sharded: bool):
+        leaves = {k: getattr(gs, k).clone().requires_grad_()
+                  for k in ("xyz", "shs")}
+        g = Gaussians(xyz=leaves["xyz"], opacity=gs.opacity,
+                      rotation=gs.rotation, scaling=gs.scaling,
+                      shs=leaves["shs"])
+        if sharded:
+            out = sharded_rasterize_batch(
+                [g], w2cs, ks, height=HW, width=HW, mesh=mesh, background=bg,
+                use_rgb=True, exchange_capacity=cap)
+            rgb = out["comp_rgb"]
+        else:
+            out = rasterize_multiview(g, w2cs[0], ks[0], height=HW,
+                                      width=HW, background=bg[0],
+                                      use_rgb=True)
+            rgb = out["comp_rgb"][None]
+        loss = (rgb - target).abs().mean()
+        loss.backward()
+        grads = {k: t.grad for k, t in leaves.items()}
+        if sharded:
+            for t in grads.values():
+                comm.all_reduce(t, mesh.model_group)
+        torch.cuda.synchronize()
+        return rgb.detach(), loss.detach(), grads, out
+
+    comm.stats.reset()
+    rgb, loss, grads, out = run(True)
+    a2a = comm.stats.snapshot().get("all_to_all", {})
+    t0 = time.perf_counter()
+    run(True)
+    ms = (time.perf_counter() - t0) * 1e3
+    row = {"n_gaussians": gs.n, "capacity": cap,
+           "stats": {k: stats[k] for k in ("live_pairs", "diagonal",
+                                           "default_capacity",
+                                           "suggested_capacity")},
+           "exchange_pairs": out["exchange_pairs"].tolist(),
+           "overflow": int(out["overflow"]), "all_to_all": a2a,
+           "fwd_bwd_ms": ms, "loss": float(loss)}
+    if mesh.rank == 0:
+        ref_rgb, ref_loss, ref_grads, _ = run(False)
+        d = (rgb - ref_rgb).abs()
+        row["render"] = {"max_abs_err": float(d.max()),
+                         "share_over_eps": float(
+                             (d > SHARD_PIXEL_EPS).float().mean())}
+        row["loss_ref"] = float(ref_loss)
+        row["gradients"] = {k: at_scale_gate(grads[k], ref_grads[k])
+                            for k in grads}
+    return row
+
+
+# trainables whose gradient comes back through the bf16 feature pipeline's
+# backward: there an fp32-ulp change of the features' gradient (the
+# exchange's tile-local rounding) flips bf16 roundings and moves these
+# gradients by about 1 % of their largest, while the bf16 gradient itself
+# lies about 10 % (in norm) from the float32 function's (CPU rehearsal at
+# the tiny config). In the bf16 step they are held in norm against the
+# float32 function as the bf16 kernels are (BF16_NORM_RATIO), the others
+# at the at-scale gate; the float32 sharded step holds every trainable,
+# these too, at the at-scale gate against the float32 reference
+FEATURE_TRAINABLES = ("identity_code", "map_bias")
+
+
+def accumulated_step(module, vgg, fit_cfg, samples) -> tuple:
+    """One unsharded update of ``module`` from len(samples) B = 1 steps
+    (each sample's features at B = 1, as on the ranks): the losses and the
+    gradients the update was given (the mean of the samples'). The
+    module's trainables are put back as they were before."""
+    from guassianhand_tpu_torch.train.fit import (attach_static_features,
+                                                  make_fit_step,
+                                                  make_optimizer)
+    acc = dataclasses.replace(fit_cfg, accumulate_grad_batches=len(samples))
+    optimizer, _ = make_optimizer(module, acc)
+    saved = {n: p.detach().clone() for n, p in module.named_parameters()
+             if p.requires_grad}
+    grads = {}
+
+    def hook(opt, args, kwargs):
+        grads.update({n: p.grad.detach().clone()
+                      for n, p in module.named_parameters()
+                      if p.grad is not None})
+
+    optimizer.register_step_pre_hook(hook)
+    step = make_fit_step(module, vgg, optimizer, None, acc, height=HW,
+                         width=HW)
+    losses = [float(step(attach_static_features(module, b))[0])
+              for b in samples]
+    with torch.no_grad():
+        for n, p in module.named_parameters():
+            if n in saved:
+                p.copy_(saved[n])
+    return losses, grads
+
+
+def sharded_step_of(model, vgg, fit_cfg, batch, mesh) -> tuple:
+    """``make_sharded_fit_step`` of ``model`` on this rank's shard of
+    ``batch`` (its static features attached): the step, the shard and a
+    dict that each update fills with the gradients it was given."""
+    from guassianhand_tpu_torch.parallel.step import (make_sharded_fit_step,
+                                                      shard_batch)
+    from guassianhand_tpu_torch.train.fit import (attach_static_features,
+                                                  make_optimizer)
+    optimizer, scheduler = make_optimizer(model, fit_cfg)
+    step = make_sharded_fit_step(model, vgg, optimizer, mesh, fit_cfg,
+                                 height=HW, width=HW, scheduler=scheduler)
+    local = attach_static_features(model, shard_batch(batch, mesh))
+    given = {}
+    optimizer.register_step_pre_hook(lambda opt, args, kwargs: given.update(
+        {n: p.grad.detach().clone() for n, p in model.named_parameters()
+         if p.grad is not None}))
+    return step, local, given
+
+
+def sharded_fit_case(mesh) -> dict:
+    """sharded_fit_2x2_bf16 on this rank: configs/one_shot.yaml at full
+    width with both switches and the exchange required, B = 2 (the
+    synthetic scene posed from seeds 0 and 1, one a data shard), vgg 0.1.
+    On rank 0 first the references from the same parameters: the mean of
+    two unsharded B = 1 steps (the ranks' own feature shapes) of this
+    model, and of its float32 twin (the same weights, compute_dtype None).
+    Then on every rank one sharded step of the float32 twin, and
+    SHARDED_FIT_STEPS sharded steps of the model, each followed by the
+    replicas' checksum spread."""
+    from guassianhand_tpu_torch.data.synthetic import (SyntheticHandScene,
+                                                       synthetic_batch)
+    from guassianhand_tpu_torch.models.one_shot import build_model
+    from guassianhand_tpu_torch.parallel import comm
+    from guassianhand_tpu_torch.parallel.step import replica_spread
+    from guassianhand_tpu_torch.train.fit import FitConfig
+    from guassianhand_tpu_torch.train.losses import LossWeights
+    from guassianhand_tpu_torch.train.vgg import VGGLoss
+    plain = kernel_config(flagship_config(), True)
+    cfg = dataclasses.replace(plain, renderer=dataclasses.replace(
+        plain.renderer, sharded_exchange=True,
+        sharded_exchange_required=True))
+    scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
+                                     width=HW, device="cuda")
+    samples = [synthetic_batch(scene, seed=s, with_target=True)
+               for s in range(mesh.n_data)]
+    batch = {k: torch.cat([b[k] for b in samples]) for k in samples[0]}
+    fit_cfg = FitConfig(weights=LossWeights(vgg=0.1))
+    model = build_model(cfg, seed=0, device="cuda")
+    vgg = VGGLoss().to("cuda")
+    row = {"n_points": scene.n_points, "batch": mesh.n_data}
+    if mesh.rank == 0:
+        # the references render unsharded: the renderer's flags own no
+        # parameter, so the same model runs with them off
+        model.cfg = plain
+        try:
+            ref_losses, ref_grads = accumulated_step(model, vgg, fit_cfg,
+                                                     samples)
+        finally:
+            model.cfg = cfg
+        twin = build_model(dataclasses.replace(plain, compute_dtype=None),
+                           seed=0, device="cuda")
+        twin.load_state_dict(model.state_dict())
+        f32_losses, f32_grads = accumulated_step(twin, vgg, fit_cfg,
+                                                 samples)
+        del twin
+    # the float32 sharded step: the exchange and the reductions without
+    # the bf16 pipeline's rounding, from the same weights
+    twin = build_model(dataclasses.replace(cfg, compute_dtype=None), seed=0,
+                       device="cuda")
+    twin.load_state_dict(model.state_dict())
+    step, local, given = sharded_step_of(twin, vgg, fit_cfg, batch, mesh)
+    torch.cuda.synchronize()
+    zero_launches()
+    f32_loss = float(step(local)[0])
+    torch.cuda.synchronize()
+    row["float32_launches"] = read_launches()
+    f32_step1 = dict(given)
+    del twin, step, local, given
+    step, local, given = sharded_step_of(model, vgg, fit_cfg, batch, mesh)
+    steps = []
+    for i in range(SHARDED_FIT_STEPS):
+        torch.cuda.synchronize()
+        zero_launches()
+        comm.stats.reset()
+        t0 = time.perf_counter()
+        loss, err = step(local)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append({
+            "step": i, "ms": ms, "loss": float(loss),
+            "exchange_pairs": err["exchange_pairs"].tolist(),
+            "overflow": float(err["overflow"]), "launches": read_launches(),
+            "comm": comm.stats.snapshot(),
+            "replica_spread": replica_spread(model, mesh)})
+        if i == 0:
+            step1 = dict(given)
+    row["steps"] = steps
+    if mesh.rank == 0:
+        if set(step1) != set(ref_grads):
+            raise AssertionError(f"gradients of other parameters: "
+                                 f"{sorted(set(step1) ^ set(ref_grads))}")
+        if set(f32_step1) != set(f32_grads):
+            raise AssertionError(f"float32: gradients of other parameters: "
+                                 f"{sorted(set(f32_step1) ^ set(f32_grads))}")
+        grads = {}
+        for n in sorted(ref_grads):
+            g = at_scale_gate(step1[n], ref_grads[n])
+            g["gate"] = "at_scale"
+            if any(n.startswith(k) for k in FEATURE_TRAINABLES):
+                to_f32 = float((step1[n] - f32_grads[n]).norm())
+                ref_to_f32 = float((ref_grads[n] - f32_grads[n]).norm())
+                g.update(gate="bf16_norm", norm_to_fp32=to_f32,
+                         ref_norm_to_fp32=ref_to_f32,
+                         ratio=to_f32 / max(ref_to_f32, 1e-30),
+                         rel_norm_to_ref=float(
+                             (step1[n] - ref_grads[n]).norm()
+                             / ref_grads[n].norm().clamp_min(1e-30)))
+                g["ok"] = g["ratio"] <= BF16_NORM_RATIO
+            grads[n] = g
+        ref_loss = float(np.mean(ref_losses))
+        f32_ref_loss = float(np.mean(f32_losses))
+        row["reference"] = {
+            "how": "mean of two unsharded B = 1 steps (one update), the "
+                   "features at the ranks' B = 1 shapes",
+            "losses": ref_losses, "loss": ref_loss,
+            "loss_rel_err": abs(steps[0]["loss"] - ref_loss) / abs(ref_loss),
+            "gradients": grads,
+            "float32": {
+                "how": "one sharded step of the float32 twin against the "
+                       "twin's two unsharded B = 1 steps",
+                "loss": f32_loss, "ref_loss": f32_ref_loss,
+                "loss_rel_err": abs(f32_loss - f32_ref_loss)
+                / abs(f32_ref_loss),
+                "gradients": {n: at_scale_gate(f32_step1[n], f32_grads[n])
+                              for n in sorted(f32_grads)}}}
+    return row
+
+
+def sharded_rank(rank: int, tmp: str) -> None:
+    """One rank of phase_sharded: joins the gloo job on cuda:0, runs both
+    rows, writes tmp/rank{rank}.json."""
+    from guassianhand_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                      make_mesh)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    initialize_distributed("file://" + os.path.join(tmp, "rendezvous"),
+                           SHARDED_RANKS, rank, backend=SHARDED_BACKEND)
+    import torch.distributed as dist
+    try:
+        out = {"rank": rank, "backend": str(dist.get_backend()),
+               "device": str(torch.empty(0, device="cuda").device)}
+        out["raster"] = sharded_raster_case(make_mesh(n_data=1))
+        with flash_switch(True):
+            out["fit"] = sharded_fit_case(make_mesh(n_data=2))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded() -> dict:
+    """[sharded]: SHARDED_RANKS processes on the one card, gloo, every
+    rank's tensors on cuda:0 (spawned after phase_build, so they load the
+    built kernels): sharded_raster_4x256 and sharded_fit_2x2_bf16
+    (``sharded_raster_case``, ``sharded_fit_case``). Four processes share
+    one card: the times are not a scaling figure. Any rank's failure or a
+    timeout fails the phase. Returns rank 0's launches a step."""
+    import torch.multiprocessing as mp
+    from guassianhand_tpu_torch.parallel.dryrun import join
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(sharded_rank, args=(tmp,),
+                                 nprocs=SHARDED_RANKS, join=False,
+                                 start_method="spawn")
+        # a failed rank raises here; one still running at the limit is
+        # killed and TimeoutError fails the phase
+        join(ctx, SHARDED_TIMEOUT_S)
+        ranks = []
+        for r in range(SHARDED_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    seconds = time.perf_counter() - t0
+    log("sharded", backend=ranks[0]["backend"],
+        devices=[r["device"] for r in ranks], ranks=SHARDED_RANKS,
+        seconds=seconds, note="4 ranks share one card through gloo: "
+        "times are not a scaling figure")
+    raster = [r["raster"] for r in ranks]
+    fits = [r["fit"] for r in ranks]
+    for r, x in enumerate(raster):
+        log("sharded_raster_4x256", rank=r, **{k: v for k, v in x.items()})
+    for r, x in enumerate(fits):
+        for s in x["steps"]:
+            a2a = s["comm"].get("all_to_all", {})
+            log("sharded_fit_step", rank=r, step=s["step"], ms=s["ms"],
+                loss=s["loss"], exchange_pairs=s["exchange_pairs"],
+                overflow=s["overflow"], all_to_all_calls=a2a.get("calls"),
+                all_to_all_bytes=a2a.get("bytes"), comm=s["comm"],
+                replica_spread=s["replica_spread"], launches=s["launches"])
+    ref = fits[0]["reference"]
+    log("sharded_fit_2x2_bf16", config="configs/one_shot.yaml",
+        route="kernels", reference=ref,
+        float32_launches=[x["float32_launches"] for x in fits],
+        rank0_step_ms=[s["ms"] for s in fits[0]["steps"]],
+        losses=[s["loss"] for s in fits[0]["steps"]])
+    # the gates
+    r0 = raster[0]
+    failures = []
+    if r0["render"]["max_abs_err"] > SHARD_RGB_MAX \
+            or r0["render"]["share_over_eps"] > SHARD_PIXEL_SHARE:
+        failures.append(f"raster render {r0['render']}")
+    failures += [f"raster gradient {k} {v}" for k, v in
+                 r0["gradients"].items() if not v["ok"]]
+    for r, x in enumerate(raster):
+        if x["overflow"] != 0 or sum(x["exchange_pairs"]) <= 50_000:
+            failures.append(f"raster rank {r}: overflow {x['overflow']}, "
+                            f"pairs {sum(x['exchange_pairs'])}")
+    if ref["loss_rel_err"] > SHARD_LOSS_RTOL:
+        failures.append(f"fit loss vs reference {ref['loss_rel_err']}")
+    failures += [f"fit gradient {k} {v}" for k, v in
+                 ref["gradients"].items() if not v["ok"]]
+    if ref["float32"]["loss_rel_err"] > SHARD_LOSS_RTOL:
+        failures.append(f"float32 fit loss vs reference "
+                        f"{ref['float32']['loss_rel_err']}")
+    failures += [f"float32 fit gradient {k} {v}" for k, v in
+                 ref["float32"]["gradients"].items() if not v["ok"]]
+    for r, x in enumerate(fits):
+        losses = [s["loss"] for s in x["steps"]]
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            failures.append(f"fit rank {r} losses {losses}")
+        if losses != [s["loss"] for s in fits[0]["steps"]]:
+            failures.append(f"fit rank {r} losses differ from rank 0's")
+        for s in x["steps"]:
+            if s["replica_spread"] != 0:
+                failures.append(f"fit rank {r} step {s['step']}: replicas "
+                                f"differ ({s['replica_spread']})")
+            if s["overflow"] != 0 or min(s["exchange_pairs"]) <= 0:
+                failures.append(f"fit rank {r} step {s['step']}: overflow "
+                                f"{s['overflow']}, pairs "
+                                f"{s['exchange_pairs']}")
+            if s["comm"].get("all_to_all", {}).get("calls", 0) < 1:
+                failures.append(f"fit rank {r}: no all_to_all")
+        try:
+            check_launches(f"[sharded] fit rank {r}",
+                           x["steps"][-1]["launches"],
+                           FIT_KERNELS + FLASH_BF16)
+            check_launches(f"[sharded] float32 fit rank {r}",
+                           x["float32_launches"], FIT_KERNELS + FLASH_FP32)
+        except AssertionError as e:
+            failures.append(str(e))
+    if failures:
+        raise AssertionError("[sharded]: " + "; ".join(failures))
+    return {"launches": fits[0]["steps"][-1]["launches"],
+            "rank0_step_ms": [s["ms"] for s in fits[0]["steps"]]}
+
+
 def phase_raster_fwd_bwd(parent=None) -> dict:
     """bench.py::main's step on the card: project, bin, composite forward
     and backward at the bench scene, with the gradients of xyz, scaling,
@@ -3311,6 +3739,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    # the ranks load the kernels just built
+    sharded = phase_sharded()
+    sharded_launches = sharded["launches"]
     parent = None if args.parent is None else Parent(args.parent.resolve())
     floor_ms = launch_floor_ms()
     log("launch_floor", ms=floor_ms,
@@ -3386,7 +3817,8 @@ def main(argv=None) -> int:
                 "fit_edit_flagship_bf16": edit_launches[name],
                 "eval_flagship_bf16": eval_launches[name],
                 "fit_interhand_flagship_bf16": ih_fit[name],
-                "eval_interhand_flagship_bf16": ih_eval[name]}
+                "eval_interhand_flagship_bf16": ih_eval[name],
+                "fit_sharded_flagship_bf16": sharded_launches[name]}
 
     flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     flash_via = "via guassianhand_tpu/ops/blockwise_attention.py:40"
@@ -3561,7 +3993,9 @@ def main(argv=None) -> int:
                 "fit_edit_flagship_bf16": edit_launches[f"{name}_bf16"],
                 "eval_flagship_bf16": eval_launches[f"{name}_bf16"],
                 "fit_interhand_flagship_bf16": ih_fit[f"{name}_bf16"],
-                "eval_interhand_flagship_bf16": ih_eval[f"{name}_bf16"]},
+                "eval_interhand_flagship_bf16": ih_eval[f"{name}_bf16"],
+                "fit_sharded_flagship_bf16":
+                    sharded_launches[f"{name}_bf16"]},
             "max_abs_err": max(attn16[f"{e}_max_abs_err"] for e in err),
             "max_ulps": max(attn16[f"{e}_max_ulps"] for e in err),
             "ms": attn16[f"{key}_ms"], "plain_ms": attn16[plain],

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
@@ -335,7 +336,10 @@ class OneShotAvatarModel(nn.Module):
 
         Returns comp_rgb (B, V, H, W, 3), comp_mask (B, V, H, W), hidden,
         n_pairs (B,), overflow (B,), 3dgs (per-sample list), points and
-        interaction_overflow."""
+        interaction_overflow. With ``RendererConfig.sharded_exchange`` and
+        a published mesh the render goes through the exchange
+        (``_render_sharded``): overflow is then the mesh's total, with
+        exchange_pairs (world,) and no n_pairs."""
         points = batch["points"]
         b = points.shape[0]
         feats = self.features(batch, identity_from_book, infer_identity)
@@ -343,6 +347,10 @@ class OneShotAvatarModel(nn.Module):
         query = batch.get("points_tar", points)
         background = batch.get("background")
         tri_xyz, tri_uv = batch.get("tri_xyz"), batch.get("tri_uv")
+        if self.cfg.renderer.sharded_exchange:
+            sharded = self._render_sharded(feats, batch, height, width, edit)
+            if sharded is not None:
+                return sharded
         outs = [self.renderer(
             hidden[i], query[i], batch["vert_uv"][i], batch["w2c_render"][i],
             batch["K_render"][i], height=height, width=width,
@@ -358,6 +366,62 @@ class OneShotAvatarModel(nn.Module):
                 "overflow": [o["overflow"] for o in outs],
                 "3dgs": [o["3dgs"] for o in outs],
                 "points": points,
+                "interaction_overflow": feats["interaction_overflow"]}
+
+    def _render_sharded(self, feats: Dict[str, Any], batch: Dict[str, Any],
+                        height: int, width: int, edit: EditConfig):
+        """The render through the Gaussian->tile exchange over the mesh that
+        ``parallel/mesh.py::use_exchange_mesh`` publishes: each sample's
+        Gaussians are built here whole and rendered together by
+        ``sharded_rasterize_batch``. Returns None, after a warning, when no
+        mesh is published (the caller then renders unsharded); raises under
+        ``sharded_exchange_required``."""
+        from guassianhand_tpu_torch.parallel.mesh import exchange_mesh
+        xmesh = exchange_mesh()
+        r = self.cfg.renderer
+        if xmesh is None:
+            if r.sharded_exchange_required:
+                # the JAX package's message, word for word
+                raise RuntimeError(
+                    "RendererConfig.sharded_exchange_required=True but "
+                    "no exchange mesh is active at trace time "
+                    "(use_exchange_mesh) \u2014 refusing to compile the "
+                    "UNSHARDED render path.")
+            warnings.warn(
+                "RendererConfig.sharded_exchange=True but no exchange "
+                "mesh is active at trace time (use_exchange_mesh); "
+                "compiling the UNSHARDED render path.", RuntimeWarning,
+                stacklevel=3)
+            return None
+        from guassianhand_tpu_torch.parallel.comm import average_gradient
+        from guassianhand_tpu_torch.parallel.raster_shard import (
+            sharded_rasterize_batch)
+        # every model rank computed the features whole and renders its
+        # Gaussian shard: the features' gradient is averaged over the model
+        # group here, so that each rank runs the feature backward on the
+        # whole gradient (scaled by 1 / n_model) rather than on its part
+        hidden = average_gradient(feats["hidden"], xmesh.model_group)
+        points = batch["points"]
+        query = batch.get("points_tar", points)
+        tri_xyz, tri_uv = batch.get("tri_xyz"), batch.get("tri_uv")
+        gs_b = []
+        for i in range(points.shape[0]):
+            gs, uv = self.renderer.build_gaussians(
+                hidden[i], query[i], batch["vert_uv"][i],
+                None if tri_xyz is None else tri_xyz[i],
+                None if tri_uv is None else tri_uv[i])
+            gs_b.append(self.renderer.apply_appearance(
+                gs, uv, self.color_w, self.xyz_b, self.color_b,
+                self.opacity_b, edit))
+        out = sharded_rasterize_batch(
+            gs_b, batch["w2c_render"], batch["K_render"], height=height,
+            width=width, mesh=xmesh, background=batch.get("background"),
+            sh_degree=r.sh_degree, use_rgb=r.use_rgb, config=r.raster,
+            exchange_capacity=r.exchange_capacity)
+        return {"comp_rgb": out["comp_rgb"], "comp_mask": out["comp_mask"],
+                "hidden": hidden, "3dgs": gs_b,
+                "overflow": out["overflow"],
+                "exchange_pairs": out["exchange_pairs"], "points": points,
                 "interaction_overflow": feats["interaction_overflow"]}
 
 

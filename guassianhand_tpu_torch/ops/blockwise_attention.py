@@ -88,3 +88,53 @@ def _chunked_bf16(q, k, v, mask, q_chunk):
     if mask is not None:
         out = out * mask[:, None, None].to(out.dtype)
     return out
+
+
+def ring_blockwise_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, mask: torch.Tensor, group,
+                             n_dev: int) -> torch.Tensor:
+    """Exact masked attention with the sequence split over the ``n_dev``
+    ranks of ``group`` (forward only; the counterpart of
+    ``ring_blockwise_attention``, which runs inside shard_map).
+
+    q, k, v (N / n_dev, H, D): this rank's rows; mask (N / n_dev,) bool.
+    The queries stay; the key, value and mask blocks go round the ring
+    (``parallel/comm.ring_shift``, one collective a step for all three),
+    and each step's partial softmax statistics merge by the online-softmax
+    recurrence, in float32 whatever the operands' dtype (scores from
+    float32 operands, the probabilities rounded to v's dtype for the
+    product with v, as JAX's ``preferred_element_type`` einsums). Memory
+    stays O((N / n_dev)^2) a step. Returns (N / n_dev, H, D) float32, 0 on
+    masked rows."""
+    from guassianhand_tpu_torch.parallel.comm import ring_shift
+    n_loc, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float()
+    m_run = torch.full((h, n_loc), NEG_INF, device=q.device)
+    l_run = torch.zeros((h, n_loc), device=q.device)
+    acc = torch.zeros((h, n_loc, d), device=q.device)
+    # k, v and the mask travel as one float32 block (exact for bf16 and 0/1)
+    block = torch.cat([k.reshape(n_loc, h * d).float(),
+                       v.reshape(n_loc, h * d).float(),
+                       mask.reshape(n_loc, 1).float()], dim=1)
+    for step in range(n_dev):
+        kc = block[:, :h * d].reshape(n_loc, h, d).to(k.dtype)
+        vc = block[:, h * d:2 * h * d].reshape(n_loc, h, d).to(v.dtype)
+        mc = block[:, -1] > 0.5
+        s = torch.einsum("qhd,khd->hqk", qf, kc.float()) * scale
+        s = s.masked_fill(~mc[None, None, :], NEG_INF)
+        m_i = s.amax(dim=-1)
+        p = torch.exp(s - m_i[..., None])
+        l_i = p.sum(dim=-1)
+        a_i = torch.einsum("hqk,khd->hqd", p.to(vc.dtype).float(),
+                           vc.float())
+        m_new = torch.maximum(m_run, m_i)
+        c1 = torch.exp(m_run - m_new)
+        c2 = torch.exp(m_i - m_new)
+        l_run = l_run * c1 + l_i * c2
+        acc = acc * c1[..., None] + a_i * c2[..., None]
+        m_run = m_new
+        if step + 1 < n_dev:
+            block = ring_shift(block, group)
+    out = (acc / torch.clamp(l_run, min=1e-30)[..., None]).transpose(0, 1)
+    return out * mask[:, None, None].to(out.dtype)

@@ -191,14 +191,16 @@ def render_gaussians(gaussians, w2c, K, *, height, width, **kwargs):
     return rasterize(gaussians, cam, height=height, width=width, **kwargs)
 
 
-def multiview_composite_inputs(gaussians: Gaussians, w2cs: torch.Tensor,
-                               Ks: torch.Tensor, *, height: int, width: int,
-                               sh_degree: int = 3, use_rgb: bool = False,
-                               config: RasterizeConfig = RasterizeConfig()
-                               ) -> CompositeInputs:
-    """The composite inputs of V views stacked vertically on one
-    (V * H_band, W) canvas: bands are tile-row aligned, each view's means
-    are offset by v * H_band and its tile rects clamped to its band."""
+def project_views(gaussians: Gaussians, w2cs: torch.Tensor, Ks: torch.Tensor,
+                  *, height: int, width: int, sh_degree: int = 3,
+                  use_rgb: bool = False,
+                  config: RasterizeConfig = RasterizeConfig(),
+                  first_band: int = 0) -> dict:
+    """The rows of V views of the N Gaussians on a stacked canvas of
+    H_band-row bands (tile-row aligned): view v's rows are band
+    first_band + v, their means offset by that band's first pixel row and
+    their tile rects clamped to it (``band_lo``). Returns the V * N rows'
+    mean2d, conic, color, opacity, depth, radius, visible and band_lo."""
     dev = gaussians.xyz.device
     v = w2cs.shape[0]
     nty_band = -(-height // TILE)
@@ -214,7 +216,8 @@ def multiview_composite_inputs(gaussians: Gaussians, w2cs: torch.Tensor,
             gaussians.xyz, gaussians.scaling, gaussians.rotation, cams,
             scale_modifier=config.scale_modifier, znear=config.znear,
             zfar=config.zfar)
-        band = torch.arange(v, dtype=torch.float32, device=dev) * band_h
+        band = (torch.arange(v, dtype=torch.float32, device=dev)
+                + first_band) * band_h
         mean2d = torch.stack([p.mean2d[..., 0],
                               p.mean2d[..., 1] + band[:, None]], dim=-1)
         mean2d, conic, depth, radius, visible = (
@@ -222,18 +225,35 @@ def multiview_composite_inputs(gaussians: Gaussians, w2cs: torch.Tensor,
                                       p.visible))
     else:
         projs = [_project(gaussians, cam, config) for cam in cams]
-        mean2d = torch.cat([torch.stack([p.mean2d[:, 0],
-                                         p.mean2d[:, 1] + float(i * band_h)],
-                                        dim=1) for i, p in enumerate(projs)])
+        mean2d = torch.cat([torch.stack(
+            [p.mean2d[:, 0],
+             p.mean2d[:, 1] + float((first_band + i) * band_h)],
+            dim=1) for i, p in enumerate(projs)])
         conic, depth, radius, visible = (
             torch.cat([getattr(p, k) for p in projs])
             for k in ("conic", "depth", "radius", "visible"))
     band_lo = torch.repeat_interleave(
-        torch.arange(v, dtype=torch.int32, device=dev) * nty_band,
-        gaussians.n)
+        (torch.arange(v, dtype=torch.int32, device=dev) + first_band)
+        * nty_band, gaussians.n)
+    return {"mean2d": mean2d, "conic": conic, "color": color,
+            "opacity": opacity.repeat(v), "depth": depth, "radius": radius,
+            "visible": visible, "band_lo": band_lo}
+
+
+def multiview_composite_inputs(gaussians: Gaussians, w2cs: torch.Tensor,
+                               Ks: torch.Tensor, *, height: int, width: int,
+                               sh_degree: int = 3, use_rgb: bool = False,
+                               config: RasterizeConfig = RasterizeConfig()
+                               ) -> CompositeInputs:
+    """The composite inputs of V views stacked vertically on one
+    (V * H_band, W) canvas (``project_views``' rows)."""
+    rows = project_views(gaussians, w2cs, Ks, height=height, width=width,
+                         sh_degree=sh_degree, use_rgb=use_rgb, config=config)
+    band_lo = rows.pop("band_lo")
+    nty_band = -(-height // TILE)
     return composite_inputs(
-        mean2d, conic, color, opacity.repeat(v), depth, radius, visible,
-        height=v * band_h, width=width, y_band=(band_lo, band_lo + nty_band))
+        **rows, height=w2cs.shape[0] * nty_band * TILE, width=width,
+        y_band=(band_lo, band_lo + nty_band))
 
 
 def rasterize_multiview(gaussians: Gaussians, w2cs: torch.Tensor,

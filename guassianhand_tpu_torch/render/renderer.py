@@ -63,6 +63,19 @@ class RendererConfig:
     threshold_high: float = 0.9
     sh_degree: int = 3
     use_rgb: bool = True
+    # render through the Gaussian->tile all_to_all exchange
+    # (parallel/raster_shard.py::sharded_rasterize_batch) while a mesh is
+    # published with parallel/mesh.py::use_exchange_mesh (the sharded fit
+    # step does so when the model axis is wider than 1); otherwise warn and
+    # render unsharded
+    sharded_exchange: bool = False
+    # raise instead of warning when sharded_exchange is set and no mesh is
+    # published: a validation run then cannot pass on the unsharded path
+    sharded_exchange_required: bool = False
+    # per-(src, dst) pair budget of the exchange; None: lossless (every live
+    # pair travels). Pairs beyond it are dropped and counted in overflow;
+    # exchange_balance_stats()["suggested_capacity"] is a safe value
+    exchange_capacity: Optional[int] = None
     # re-project all 2N points' UVs through the posed UV mesh (tri_xyz
     # (F, 3, 3), tri_uv (F, 3, 2)) with get_uvd: O(N F) a forward
     exact_duplicate_uv: bool = False
