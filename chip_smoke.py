@@ -81,6 +81,15 @@ Phases, each reported on its own line:
   7. raster fwd+bwd: bench.py::main's step (project, bin, composite forward
      and backward at the bench scene), ms per step and rays/s, and the
      composite wrappers' host time a call;
+  7a. BASELINE.json config #2 (render_100k_512): cli/render_100k.py at
+     full size, 8 orbit views at 512^2 of the posed two-hand scene's 55,400
+     decoration Gaussians on one 4,096 x 512 canvas, with the launch counts
+     zeroed just before the tool's run and read just after (K1 and its plan
+     once a render, nothing else), overflow 0, a render profiled; K1 and its
+     plan against their twins on that canvas (all 8 views), and the scene
+     with projection_impl="pallas": one K4 launch
+     for the 8 views, its forward and adjoint equal to their twins to the
+     bit;
   8. the serving slice: the full-width one-shot avatar model (seeded
      weights) serves R = 4 requests, each one pose in V = 4 orbit views at
      256^2; then again with both kernel switches on
@@ -104,6 +113,17 @@ Phases, each reported on its own line:
      scripts/bf16_psnr_gate.py's gate:
      50 fit steps from one init in fp32, in bf16 and in the flagship's
      bf16, each bf16 fit's rendered PSNR within 0.1 dB of the fp32 fit's;
+  9a. the flagship at 512^2: cli/fit_one_shot.py --synthetic --height 512
+     --width 512 --subdivide 2 with configs/one_shot.yaml, both switches
+     and seeded VGG19 weights (vgg 0.1), measured inside the CLI: a
+     warm-up, 10 timed steps (wall ms, peak bytes, one launch of each fit
+     kernel and the bf16 K5's three a step, the loss falling) and one
+     profiled step (busy ms), the CLI's launches counted; K1 in training
+     mode, its plan,
+     K2, K3 and K4 both ways against their twins at the fitted model's
+     inputs (fit_512_bf16); one request of 4 orbit views at 512^2 through
+     OneShotAvatarModel with the flagship and both switches, K1 and K4
+     (V = 4) against their twins (request_512_bf16);
  10. the edit: configs/one_shot_edit.yaml's model (the flagship's) fits
      its per-identity parameters to the fit scene's target through
      cli/edit.py's own step (lr 0.001, no VGG, the codebook's identity 0,
@@ -226,6 +246,8 @@ REF_HW = 64         # the small model's canvas, card vs CPU
 # of the array) + rtol FIT_GRAD_RTOL * |g|
 FIT_GRAD_ATOL, FIT_GRAD_RTOL = 1e-4, 1e-3
 REQUESTS, VIEWS, HW = 4, 4, 256
+HW512 = 512          # the 512^2 scenes: BASELINE config #2 and the flagship
+RENDER_100K_VIEWS = 8
 RASTER_STEPS = 20
 RASTER_TURNS = 5   # rounds of parent, this, this, parent with --parent
 FIT_STEPS = 10
@@ -730,6 +752,19 @@ def check_composite(label: str, inputs, reps: int = 20,
     return row
 
 
+def check_plan(tile_range, n_pairs: int) -> tuple:
+    """The chunk plan, the card's kernel against its twin: (items and slot
+    bases equal, the twin's item count, its checkpoint slots)."""
+    from guassianhand_tpu_torch.ops import rasterize_cuda as rc
+    got = rc.chunk_plan(tile_range, n_pairs)
+    want = rc.chunk_plan_plain(tile_range, n_pairs)
+    items = int(want.n_items)
+    equal = bool(int(got.n_items) == items
+                 and torch.equal(got.items[:items], want.items[:items])
+                 and torch.equal(got.slot_base, want.slot_base))
+    return equal, items, int(want.slot_base[-1])
+
+
 def bench_loss(rgb, final_t, target):
     """bench.py::main's loss: |rgb - target|.mean() + (mask^2).mean()."""
     return (rgb - target).abs().mean() + ((1.0 - final_t) ** 2).mean()
@@ -780,14 +815,7 @@ def check_gradients(label: str, inputs, reps: int = 20,
     before = (rc.composite_forward.launches, rc.composite_backward.launches,
               sr.segment_reduce_sorted.launches)
 
-    # the chunk plan: the card's kernel against its twin
-    got, want = rc.chunk_plan(tr, n_pairs), rc.chunk_plan_plain(tr, n_pairs)
-    plan_items = int(want.n_items)
-    plan_equal = bool(int(got.n_items) == plan_items
-                      and torch.equal(got.items[:plan_items],
-                                      want.items[:plan_items])
-                      and torch.equal(got.slot_base, want.slot_base))
-    n_slots = int(want.slot_base[-1])
+    plan_equal, plan_items, n_slots = check_plan(tr, n_pairs)
 
     # K1, training mode
     rgb_r, t_r = rc.composite_forward(tr, gid, attrs, **kw)
@@ -1758,6 +1786,351 @@ def phase_flagship(fp32_fit: dict, fp32_serve: dict) -> dict:
         serve={"bf16": serve_row(serve), "fp32": serve_row(fp32_serve)},
         launches={"fit": fit["launches"], "serve": serve_launches})
     return {"fit": fit, "serve_launches": serve_launches}
+
+
+def phase_render_100k(info: dict) -> dict:
+    """BASELINE.json config #2 through cli/render_100k.py at full size (8
+    orbit views at 512^2 of the posed two-hand scene's 55,400 decoration
+    Gaussians, one rasterize_multiview call a render), the launch counts
+    zeroed just before the tool's run and read just after: K1 in render
+    mode and its plan once a render (a warm-up and 5 timed), nothing else;
+    overflow 0 and n 55,400. A render profiled (device busy, top kernels).
+    Then K1 and its plan against their twins on the tool's stacked canvas
+    (all its views), and the same scene with
+    projection_impl="pallas": one launch of K4 projects all 8 views, its
+    forward and adjoint equal to their twins to the bit."""
+    from guassianhand_tpu_torch.cli import render_100k
+    from guassianhand_tpu_torch.core.camera import Camera
+    from guassianhand_tpu_torch.ops import rasterize_cuda as rc
+    from guassianhand_tpu_torch.ops.rasterize import (RasterizeConfig,
+                                                      multiview_composite_inputs)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    line, run = render_100k.run(RENDER_100K_VIEWS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    tool_s = time.perf_counter() - t0
+    g, w2cs, Ks, hw, out = (run[k] for k in ("gaussians", "w2cs", "Ks", "hw",
+                                             "out"))
+    renders = 1 + render_100k.FULL["reps"]
+    want = {k: renders * (k in SERVE_DEFAULT) for k in launches}
+    busy_ms, top = device_profile(lambda: render_100k.render(g, w2cs, Ks, hw))
+    mask = out["comp_mask"]
+    row = {**line, "n": g.n, "views": RENDER_100K_VIEWS, "canvas": [
+        RENDER_100K_VIEWS * hw, hw], "peak_bytes": peak,
+        "launches": {k: v for k, v in launches.items() if v},
+        "renders": renders, "tool_s": tool_s,
+        "device_busy_ms_profiled_render": busy_ms,
+        "device_busy_share": busy_ms / (line["ms_per_view"]
+                                        * RENDER_100K_VIEWS),
+        "top_device_ms": top, "comp_mask_mean": float(mask.mean()),
+        "finite": bool(torch.isfinite(out["comp_rgb"]).all()),
+        "card": info["nvidia_smi"]}
+    log("render_100k_512", **row)
+    if g.n != 55_400 or line["overflow"] != 0 or launches != want \
+            or not row["finite"] or not 0.0 < row["comp_mask_mean"] < 1.0:
+        raise AssertionError(f"render_100k at full size: {row}, launches "
+                             f"wanted {want}")
+
+    t1 = time.perf_counter()
+    inputs = multiview_composite_inputs(g, w2cs, Ks, height=hw, width=hw,
+                                        use_rgb=True)
+    composite = check_composite("render_100k_512", inputs, reps=5)
+    tr, n_pairs = inputs.tile_range, inputs.pair_gid.shape[0]
+    plan_equal, plan_items, _ = check_plan(tr, n_pairs)
+    plan_ms = time_cuda(lambda: rc.chunk_plan(tr, n_pairs), reps=20)
+    plan_plain_ms = time_cuda(lambda: rc.chunk_plan_plain(tr, n_pairs),
+                              reps=2, warmup=1)
+    twin_s = time.perf_counter() - t1
+    log("render_100k_512_twins", seconds=twin_s, plan_equal=plan_equal,
+        plan_items=plan_items,
+        plan_ms=plan_ms, plan_plain_ms=plan_plain_ms,
+        plan_bound_ms=bound(8 * tr.numel() + 4 + 16 * plan_items, 0)[
+            "bound_ms"])
+    if not plan_equal:
+        raise AssertionError("the chunk plan differs from its twin's at "
+                             "render_100k_512")
+    del inputs
+
+    zero_launches()
+    pallas = render_100k.render(g, w2cs, Ks, hw,
+                                RasterizeConfig(projection_impl="pallas"))
+    torch.cuda.synchronize()
+    k4_launches = read_launches()
+    # K4 rounds apart from the plain projection of the default route, so a
+    # rect may gain or lose a tile: the two renders are logged side by side
+    apart = float((pallas["comp_rgb"] - out["comp_rgb"]).abs().max())
+    want = {k: int(k in SERVE_DEFAULT + ("project_forward",))
+            for k in k4_launches}
+    if k4_launches != want or pallas["overflow"] != 0:
+        raise AssertionError(f"render_100k with projection_impl=pallas: "
+                             f"launches {k4_launches}, not {want}")
+    cams = [Camera.from_w2c(w2cs[i], Ks[i], hw, hw, device="cuda")
+            for i in range(RENDER_100K_VIEWS)]
+    views = check_projection_views(
+        "render_100k_8_views", *(t.contiguous() for t in (
+            g.xyz, g.scaling, g.rotation)), cams)
+    log("render_100k_512_pallas", launches={
+        k: c for k, c in k4_launches.items() if c},
+        rgb_max_abs_apart_from_default_route=apart,
+        n_pairs=pallas["n_pairs"], n_pairs_default_route=line["n_pairs"],
+        seconds=time.perf_counter() - t0)
+    return {"launches": launches, "line": line, "composite": composite,
+            "plan_ms": plan_ms, "plan_plain_ms": plan_plain_ms,
+            "views": views, "twin_s": twin_s, "seconds":
+            time.perf_counter() - t0}
+
+
+def kernels_at_512(r100k: dict, fit512: dict, request512: dict) -> dict:
+    """Each kernel's numbers at the 512^2 scenes, for the kernel table:
+    by kernel, then by scene, its ms, its twin's, its bound and its largest
+    error against the twin (None where the check is bitwise or exact)."""
+    def k1(row):
+        return {"ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "n_pairs": row["n_pairs"],
+                "max_tile_pairs": row["max_tile_pairs"],
+                "max_abs_err": max(row["max_abs_err_rgb"],
+                                   row["max_abs_err_final_t"])}
+
+    def views(row):
+        return {"views": row["views"], "ms": row["fwd_ms"],
+                "bound_ms": row["fwd_bound"]["bound_ms"],
+                "single_launches_ms": row["fwd_single_launches_ms"],
+                "adjoint_ms": row["bwd_ms"],
+                "adjoint_bound_ms": row["bwd_bound"]["bound_ms"],
+                "bit_equal": not any(row["apart"].values())}
+
+    g, p = fit512["gradients"], fit512["projection"]
+    return {
+        "composite_forward": {
+            "render_100k_512": k1(r100k["composite"]),
+            "request_512_flagship_bf16": k1(request512["composite"]),
+            "fit_512_train": {
+                "ms": g["k1_train_ms"], "plain_ms": g["k1_train_plain_ms"],
+                "bound_ms": g["k1_train_bound_ms"],
+                "bound_by": g["k1_train_bound_by"], "n_pairs": g["n_pairs"],
+                "n_contrib_mismatch": g["n_contrib_mismatch"],
+                "max_abs_err": g["checkpoints_max_abs_err"]}},
+        "composite_plan": {
+            "render_100k_512": {"ms": r100k["plan_ms"],
+                                "plain_ms": r100k["plan_plain_ms"]},
+            "fit_512": {"ms": g["plan_ms"], "plain_ms": g["plan_plain_ms"],
+                        "bound_ms": g["plan_bound_ms"],
+                        "items": g["plan_items"], "equal": g["plan_equal"]}},
+        "composite_backward": {"fit_512": {
+            "ms": g["k2_ms"], "plain_ms": g["k2_plain_ms"],
+            "bound_ms": g["k2_bound_ms"], "bound_by": g["k2_bound_by"],
+            "checkpoints": g["checkpoints"],
+            "bit_reproducible": g["k2_bit_reproducible"],
+            "max_abs_err": g["pair_rows_max_abs_err"]}},
+        "segment_reduce_sorted": {"fit_512": {
+            "ms": g["k3_ms"], "plain_ms": g["k3_plain_ms"],
+            "bound_ms": g["k3_bound_ms"], "bound_by": g["k3_bound_by"],
+            "library_ms": g["k3_library_ms"],
+            "bit_reproducible": g["k3_bit_reproducible"],
+            "max_abs_err": max(v["max_abs_err"]
+                               for v in g["segment_reduce"].values())}},
+        "project_forward": {
+            "render_100k_512": views(r100k["views"]),
+            "request_512_flagship_bf16": views(request512["views"]),
+            "fit_512": {"ms": p["fwd_ms"], "plain_ms": p["fwd_plain_ms"],
+                        "bound_ms": p["fwd_bound"]["bound_ms"],
+                        "max_abs_err": max(p[f"{k}_max_abs_err"] for k in
+                                           ("mean2d", "depth", "conic"))}},
+        "project_backward": {"fit_512": {
+            "ms": p["bwd_ms"], "plain_ms": p["bwd_plain_ms"],
+            "bound_ms": p["bwd_bound"]["bound_ms"],
+            "max_abs_err": max(p[f"grad_{k}_max_abs_err"] for k in
+                               ("xyz", "scaling", "rotation"))}}}
+
+
+def seeded_vgg19_file(path: Path) -> Path:
+    """train/vgg.py's seeded VGG19 weights as a torchvision state dict at
+    ``path``, for a CLI's ``vgg_weights`` (the CLIs leave the VGG term out
+    without weights)."""
+    from guassianhand_tpu_torch.train import vgg
+    sd = {}
+    for (name, _, _), (w, b) in zip(vgg._CONV_PLAN, vgg._random_params()):
+        sd[f"{name}.weight"] = torch.from_numpy(w)
+        sd[f"{name}.bias"] = torch.from_numpy(b)
+    torch.save(sd, path)
+    return path
+
+
+def cli_steps(module, steps: int):
+    """A context that wraps the ``make_fit_step`` of a CLI ``module`` so
+    that the CLI's own fit of 2 + ``steps`` steps is measured: the first
+    step a warm-up, the next ``steps`` timed with the device synchronised
+    (wall ms, the loss, the launches of each step, the peak bytes over
+    them), the last under torch.profiler (device busy ms, top kernels).
+    Yields the record, which also keeps the model and the batch."""
+    make = module.make_fit_step
+    rec = {"ms": [], "losses": [], "per_step": []}
+
+    def make_measured(model, *args, **kwargs):
+        step = make(model, *args, **kwargs)
+        rec["model"] = model
+
+        def measured(batch):
+            rec["batch"] = batch
+            i = len(rec["per_step"])
+            if i == steps + 1:
+                out = []
+                rec["busy_ms"], rec["top"] = device_profile(
+                    lambda: out.append(step(batch)))
+                rec["per_step"].append(None)
+                return out[0]
+            torch.cuda.synchronize()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            counts = read_launches()
+            t = time.perf_counter()
+            loss, err = step(batch)
+            torch.cuda.synchronize()
+            if i == 0:
+                rec["warmup_loss"] = float(loss)
+            else:
+                rec["ms"].append((time.perf_counter() - t) * 1e3)
+                rec["losses"].append(float(loss))
+            rec["per_step"].append({k: v - counts[k]
+                                    for k, v in read_launches().items()})
+            if i == steps:
+                rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+            return loss, err
+        return measured
+
+    @contextlib.contextmanager
+    def wrapped():
+        module.make_fit_step = make_measured
+        try:
+            yield rec
+        finally:
+            module.make_fit_step = make
+    return wrapped()
+
+
+def phase_fit_512(info: dict, out_dir: str) -> dict:
+    """The flagship (configs/one_shot.yaml, both switches) fitted at 512^2
+    on the synthetic scene subdivided twice (15,404 points, 30,808 Gaussian
+    slots), VGG 0.1 with seeded VGG19 weights: cli/fit_one_shot.py
+    --synthetic --height 512 --width 512 --subdivide 2 for 2 + FIT_STEPS
+    steps, measured inside the CLI (``cli_steps``: a warm-up, FIT_STEPS
+    timed steps with their wall ms, peak bytes, launches and losses, one
+    profiled step's device busy ms), with the launch counts zeroed just
+    before the CLI and read just after (each step one launch of each fit
+    kernel and the bf16 K5's three, and nothing else; each forward the CLI
+    renders besides one of K1, its plan, K4's forward and the bf16 K5's
+    forward, the synthetic target one of K1, its plan and K4's forward);
+    the loss falling over the timed steps and in the CLI's log. Then K1 in
+    training mode, its plan, K2, K3 and K4 both ways against their twins
+    at the fitted model's inputs."""
+    from guassianhand_tpu_torch.cli import fit_one_shot
+    t0 = time.perf_counter()
+    vgg_path = seeded_vgg19_file(Path(out_dir) / "vgg19_seeded.pth")
+    n_steps = FIT_STEPS + 2
+    zero_launches()
+    with flash_switch(True), cli_steps(fit_one_shot, FIT_STEPS) as rec:
+        rc, said = run_quiet(fit_one_shot.main, [
+            "--config", str(REPO / "configs" / "one_shot.yaml"),
+            "--synthetic", "--height", str(HW512), "--width", str(HW512),
+            "--subdivide", "2", "--steps", str(n_steps),
+            f"out_dir={out_dir}", "expname=fit512",
+            f"vgg_weights={vgg_path}",
+            "model.renderer.raster.projection_impl=pallas"])
+        cli_s = time.perf_counter() - t0
+        cli_launches = read_launches()
+        if rc != 0 or "perceptual term is off" in said:
+            raise AssertionError(f"the 512^2 fit CLI: rc {rc}:\n"
+                                 f"{said[-2000:]}")
+        model, batch = rec["model"], rec["batch"]
+        captured = kernel_inputs(model, batch, HW512)
+    # the synthetic target is rendered too: K1, its plan and K4's forward
+    target = SERVE_DEFAULT + ("project_forward",)
+    want = {k: n_steps + cli_fit_forwards(n_steps) * (k in SERVE_FLAGSHIP)
+            + (k in target) for k in FIT_KERNELS + FLASH_BF16}
+    off = {k: v for k, v in cli_launches.items() if v != want.get(k, 0)}
+    step_off = [i for i, per in enumerate(rec["per_step"]) if per and any(
+        v != int(k in FIT_KERNELS + FLASH_BF16) for k, v in per.items())]
+    cli_losses = [json.loads(ln)["loss"] for ln in
+                  (Path(out_dir) / "fit512" / "metrics.jsonl")
+                  .read_text().splitlines()]
+    losses = rec["losses"]
+    if off or step_off:
+        raise AssertionError(f"the 512^2 fit CLI: launches {off} not {want}; "
+                             f"steps {step_off} off: {rec['per_step']}")
+    if not (all(math.isfinite(x) for x in losses + cli_losses)
+            and losses[-1] < rec["warmup_loss"]
+            and cli_losses[-1] < cli_losses[0]):
+        raise AssertionError(f"the 512^2 fit's loss did not fall: warm-up "
+                             f"{rec['warmup_loss']}, timed {losses}, the "
+                             f"CLI's log {cli_losses}")
+    launches = {k: sum(per[k] for per in rec["per_step"][1:FIT_STEPS + 1])
+                for k in cli_launches}
+    ms = rec["ms"]
+    inputs, gs = captured["inputs"], captured["gaussians"]
+    n_points = int(batch["points"].shape[-2])
+    row = {"config": "configs/one_shot.yaml", "route": "kernels",
+           "hw": HW512, "n_points": n_points, "gaussian_slots": 2 * n_points,
+           "vgg": 0.1, "pairs": captured["n_pairs"],
+           "live_rows_k5": int(captured["attention"][3].sum()),
+           "cli_s": cli_s, "cli_losses": cli_losses,
+           "cli_launches": {k: v for k, v in cli_launches.items() if v},
+           "launches_per_step": {k: v // FIT_STEPS
+                                 for k, v in launches.items() if v},
+           "steps": FIT_STEPS, "ms_per_step": ms,
+           "ms_per_step_mean": float(np.mean(ms)),
+           "device_busy_ms_profiled_step": rec["busy_ms"],
+           "device_busy_share": rec["busy_ms"] / float(np.mean(ms)),
+           "peak_bytes": rec["peak_bytes"],
+           "warmup_loss": rec["warmup_loss"], "losses": losses,
+           "top_device_ms": rec["top"], "card": info["nvidia_smi"]}
+    log("fit_512_bf16", **row)
+    if n_points != 15_404:
+        raise AssertionError(f"the 512^2 fit's scene: {row}")
+    grads = check_gradients("fit_512", inputs, reps=5)
+    proj = check_projection("fit_512", gs.xyz.contiguous(),
+                            gs.scaling.contiguous(), gs.rotation.contiguous(),
+                            captured["camera"], reps=5)
+    return {"launches": launches, "row": row, "gradients": grads,
+            "projection": proj, "seconds": time.perf_counter() - t0}
+
+
+def phase_request_512(info: dict) -> dict:
+    """One request of the flagship (configs/one_shot.yaml, both switches):
+    one pose in VIEWS orbit views at 512^2 through OneShotAvatarModel
+    (``phase_slice`` with hw 512, one request after a warm-up, its batch
+    and model ms, a profiled request's device busy time); then K1 in render
+    mode against its twin on the request's stacked canvas and K4 with its
+    VIEWS cameras (one launch) against its twins, to the bit."""
+    from guassianhand_tpu_torch.core.camera import Camera
+    t0 = time.perf_counter()
+    inputs, launches, request = phase_slice(
+        kernels=True, model_cfg=flagship_config(),
+        route="request_512_flagship_bf16", want=SERVE_FLAGSHIP, hw=HW512,
+        requests=1)
+    composite = check_composite("request_512", inputs, reps=5)
+    del inputs
+    req = request["gaussians"]
+    views = check_projection_views(
+        "request_512_4_views", *(t.contiguous() for t in (
+            req.xyz, req.scaling, req.rotation)),
+        [Camera.from_w2c(w, k, HW512, HW512, device="cuda")
+         for w, k in zip(request["w2cs"], request["Ks"])], reps=5)
+    r, prof = request["rows"][0], request["profile"]
+    log("request_512_bf16", config="configs/one_shot.yaml", hw=HW512,
+        views=VIEWS, batch_ms=r["batch_ms"], model_ms=r["model_ms"],
+        device_busy_ms=prof["device_busy_ms"],
+        device_busy_share=prof["device_busy_share"],
+        features_ms=prof["features_ms"], n_pairs=r["n_pairs"],
+        peak_bytes=request["peak_bytes"],
+        launches={k: v for k, v in launches.items() if v},
+        seconds=time.perf_counter() - t0, card=info["nvidia_smi"])
+    return {"launches": launches, "composite": composite, "views": views,
+            "row": r, "seconds": time.perf_counter() - t0}
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3189,8 +3562,10 @@ def phase_raster_fwd_bwd(parent=None) -> dict:
 
 
 def phase_slice(kernels: bool = False, model_cfg=None,
-                route: str = None, want: tuple = None):
-    """R requests of V views of the full-width avatar, on the default route
+                route: str = None, want: tuple = None, hw: int = HW,
+                requests: int = REQUESTS):
+    """``requests`` requests of V views at hw x hw of the full-width
+    avatar, on the default route
     or with both kernel switches on (where each request must launch the
     projection once for its V views), of ``model_cfg`` (``slice_config``,
     fp32, unless given); ``want`` the kernels the requests
@@ -3208,8 +3583,8 @@ def phase_slice(kernels: bool = False, model_cfg=None,
     route = route or ("kernels" if kernels else "default")
     cfg = kernel_config(model_cfg or slice_config(), kernels)
     t0 = time.perf_counter()
-    scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=HW,
-                                     width=HW, device="cuda")
+    scene = SyntheticHandScene.build(n_vertices=778, subdivide=2, height=hw,
+                                     width=hw, device="cuda")
     model = build_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
@@ -3223,7 +3598,7 @@ def phase_slice(kernels: bool = False, model_cfg=None,
                             VIEWS, VIEWS)
         torch.cuda.synchronize()
         t_b = time.perf_counter()
-        out = render_request(model, batch, HW, HW)
+        out = render_request(model, batch, hw, hw)
         torch.cuda.synchronize()
         return batch, out, (t_b - t_a) * 1e3, (time.perf_counter() - t_b) * 1e3
 
@@ -3233,7 +3608,7 @@ def phase_slice(kernels: bool = False, model_cfg=None,
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
         results = []
-        for r in range(REQUESTS):
+        for r in range(requests):
             counts = read_launches()
             results.append(request(r))
             per = {k: v - counts[k] for k, v in read_launches().items()}
@@ -3257,24 +3632,24 @@ def phase_slice(kernels: bool = False, model_cfg=None,
                    "shape": list(rgb.shape)}
             log("request", **row)
             rows.append(row)
-            if not row["finite"] or row["shape"] != [1, VIEWS, HW, HW, 3]:
+            if not row["finite"] or row["shape"] != [1, VIEWS, hw, hw, 3]:
                 raise AssertionError(f"request {r}: bad output {row}")
             if not 0.0 < row["comp_mask_mean"] < 1.0:
                 raise AssertionError(f"request {r}: empty or full render "
                                      f"{row}")
-        log("slice", route=route, requests=REQUESTS, views=VIEWS,
+        log("slice", route=route, requests=requests, views=VIEWS, hw=hw,
             model_ms=[x["model_ms"] for x in rows],
             model_ms_mean=float(np.mean([x["model_ms"] for x in rows])),
             launches=launches, peak_bytes=peak)
         check_launches(f"the serving slice ({route})", launches, want)
         batch, out = results[-1][0], results[-1][1]
-        prof = phase_profile(lambda: request(REQUESTS),
+        prof = phase_profile(lambda: request(requests),
                              lambda: model.features(batch), rows, route)
     gs = out["3dgs"][0]
     rcfg = cfg.renderer
     w2cs, Ks = batch["w2c_render"][0], batch["K_render"][0]
     inputs = multiview_composite_inputs(
-        gs, w2cs, Ks, height=HW, width=HW, sh_degree=rcfg.sh_degree,
+        gs, w2cs, Ks, height=hw, width=hw, sh_degree=rcfg.sh_degree,
         use_rgb=rcfg.use_rgb, config=rcfg.raster)
     return inputs, launches, {"gaussians": gs, "w2cs": w2cs, "Ks": Ks,
                               "rows": rows, "peak_bytes": peak,
@@ -3512,12 +3887,12 @@ def phase_fit(kernels: bool = False, model_cfg=None, route: str = None,
             "busy_share": busy_ms / float(np.mean(ms)), **captured}
 
 
-def kernel_inputs(model, batch) -> dict:
-    """One more forward of the fitted ``model`` on ``batch`` (under the
-    caller's flash switch) with the interaction attention's inputs kept:
-    the kernels' inputs at this batch. Returns the composite inputs in the
-    batch's view, the Gaussians, the camera, the attention's q, k, v and
-    mask, and the forward's pair count."""
+def kernel_inputs(model, batch, hw: int = HW) -> dict:
+    """One more forward of the fitted ``model`` on ``batch`` at hw x hw
+    (under the caller's flash switch) with the interaction attention's
+    inputs kept: the kernels' inputs at this batch. Returns the composite
+    inputs in the batch's view, the Gaussians, the camera, the attention's
+    q, k, v and mask, and the forward's pair count."""
     from guassianhand_tpu_torch.core.camera import Camera
     from guassianhand_tpu_torch.models.one_shot import no_tf32
     from guassianhand_tpu_torch.nn import heads
@@ -3533,17 +3908,17 @@ def kernel_inputs(model, batch) -> dict:
     heads.blockwise_attention = keep
     try:
         with torch.no_grad(), no_tf32():
-            out = model(batch, HW, HW)
+            out = model(batch, hw, hw)
     finally:
         heads.blockwise_attention = attend
     gs = out["3dgs"][0]
     rcfg = model.cfg.renderer
     w2c, K = batch["w2c_render"][0], batch["K_render"][0]
     inputs = multiview_composite_inputs(
-        gs, w2c, K, height=HW, width=HW, sh_degree=rcfg.sh_degree,
+        gs, w2c, K, height=hw, width=hw, sh_degree=rcfg.sh_degree,
         use_rgb=rcfg.use_rgb, config=rcfg.raster)
     return {"inputs": inputs, "gaussians": gs,
-            "camera": Camera.from_w2c(w2c[0], K[0], HW, HW, device="cuda"),
+            "camera": Camera.from_w2c(w2c[0], K[0], hw, hw, device="cuda"),
             "attention": captured[0], "n_pairs": int(out["n_pairs"][0])}
 
 
@@ -3758,6 +4133,7 @@ def main(argv=None) -> int:
     phase_attention_edges()
     phase_attention_edges(torch.bfloat16)
     phase_raster_fwd_bwd(parent)
+    r100k = phase_render_100k(info)
     avatar_inputs, serve_launches, _ = phase_slice()
     avatar_row = check_composite("avatar_4x256", avatar_inputs, parent=parent)
     avatar_grad = check_gradients("avatar_4x256", avatar_inputs,
@@ -3791,6 +4167,15 @@ def main(argv=None) -> int:
     bf16_launches = flagship["fit"]["launches"]
     flagship_serve = flagship["serve_launches"]
     del flagship
+    with tempfile.TemporaryDirectory() as out_dir:
+        fit512 = phase_fit_512(info, out_dir)
+    request512 = phase_request_512(info)
+    log("phases_512", seconds={
+        "render_100k_512": r100k["seconds"], "fit_512_bf16": fit512["seconds"],
+        "request_512_bf16": request512["seconds"]},
+        seconds_total=r100k["seconds"] + fit512["seconds"]
+        + request512["seconds"],
+        render_100k_twin_seconds=r100k["twin_s"])
     phase_bf16_psnr_gate()
     with tempfile.TemporaryDirectory() as out_dir:
         edit = phase_edit(info, out_dir)
@@ -3818,7 +4203,10 @@ def main(argv=None) -> int:
                 "eval_flagship_bf16": eval_launches[name],
                 "fit_interhand_flagship_bf16": ih_fit[name],
                 "eval_interhand_flagship_bf16": ih_eval[name],
-                "fit_sharded_flagship_bf16": sharded_launches[name]}
+                "fit_sharded_flagship_bf16": sharded_launches[name],
+                "render_100k_512": r100k["launches"][name],
+                "fit_512_flagship_bf16": fit512["launches"][name],
+                "request_512_flagship_bf16": request512["launches"][name]}
 
     flash_src = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     flash_via = "via guassianhand_tpu/ops/blockwise_attention.py:40"
@@ -3995,7 +4383,11 @@ def main(argv=None) -> int:
                 "fit_interhand_flagship_bf16": ih_fit[f"{name}_bf16"],
                 "eval_interhand_flagship_bf16": ih_eval[f"{name}_bf16"],
                 "fit_sharded_flagship_bf16":
-                    sharded_launches[f"{name}_bf16"]},
+                    sharded_launches[f"{name}_bf16"],
+                "render_100k_512": r100k["launches"][f"{name}_bf16"],
+                "fit_512_flagship_bf16": fit512["launches"][f"{name}_bf16"],
+                "request_512_flagship_bf16":
+                    request512["launches"][f"{name}_bf16"]},
             "max_abs_err": max(attn16[f"{e}_max_abs_err"] for e in err),
             "max_ulps": max(attn16[f"{e}_max_ulps"] for e in err),
             "ms": attn16[f"{key}_ms"], "plain_ms": attn16[plain],
@@ -4033,6 +4425,7 @@ def main(argv=None) -> int:
             "ms": proj["bwd_ms"], "bound_ms": proj["bwd_bound"]["bound_ms"],
             "max_abs_err": max(proj[f"grad_{k}_max_abs_err"]
                                for k in ("xyz", "scaling", "rotation"))}}
+    at_512 = kernels_at_512(r100k, fit512, request512)
     for name, err in (("flash_forward", ("out",)),
                       ("flash_backward_dkv", ("dk", "dv")),
                       ("flash_backward_dq", ("dq",))):
@@ -4043,6 +4436,12 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] in at_interhand:
             k["at_interhand_fit"] = at_interhand[k["name"]]
+    for k in kernels:
+        if k["name"] in at_512:
+            k["at_512"] = at_512[k["name"]]
+            k["max_abs_err"] = max([k["max_abs_err"]] + [
+                row["max_abs_err"] for row in at_512[k["name"]].values()
+                if row.get("max_abs_err") is not None])
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel timing failed")
     print(json.dumps({"kernels": kernels}))

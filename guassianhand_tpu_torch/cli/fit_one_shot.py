@@ -3,10 +3,14 @@
 
   python -m guassianhand_tpu_torch.cli.fit_one_shot [--config cfg.yaml]
       [--synthetic] [--run_val [--val_frames N] [--no_images]] [--steps N]
-      [--height H] [--width W] [--device cpu] [key.sub=value ...]
+      [--height H] [--width W] [--subdivide S] [--device cpu]
+      [key.sub=value ...]
 
 The data is the synthetic two-hand scene with ``--synthetic`` or
-``data.dataset: synthetic`` (the default), else InterHand2.6M
+``data.dataset: synthetic`` (the default), subdivided
+``min(data.edge_subdivide, 1)`` times as in the JAX package unless
+``--subdivide`` says otherwise (2 gives the 15,404 points of InterHand2.6M's
+meshes at ``edge_subdivide: 2``), else InterHand2.6M
 (``data/interhand.py``, from ``data.data_root``, ``data.annot_path`` and
 the MANO pickles of ``data.mano_models_path``). The model has seeded
 weights, over which the ``pretrained`` checkpoint is loaded where it is
@@ -175,6 +179,9 @@ def main(argv=None) -> int:
                         help="override total fit steps")
     parser.add_argument("--height", type=int, default=None)
     parser.add_argument("--width", type=int, default=None)
+    parser.add_argument("--subdivide", type=int, default=None,
+                        help="the synthetic scene's subdivisions (default "
+                             "min(data.edge_subdivide, 1))")
     parser.add_argument("--val_frames", type=int, default=1,
                         help="with --run_val: evaluate this many pose-varied "
                              "frames")
@@ -201,7 +208,9 @@ def main(argv=None) -> int:
     # the data first: a run whose data is missing writes nothing
     if args.synthetic or cfg.data.dataset == "synthetic":
         scene = SyntheticHandScene.build(
-            n_vertices=778, subdivide=min(cfg.data.edge_subdivide, 1),
+            n_vertices=778,
+            subdivide=(min(cfg.data.edge_subdivide, 1)
+                       if args.subdivide is None else args.subdivide),
             height=hw_h, width=hw_w, device=args.device)
 
         def fit_batch():

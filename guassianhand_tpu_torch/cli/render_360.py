@@ -105,6 +105,9 @@ def main(argv=None) -> int:
     parser.add_argument("--subdivide", type=int, default=None,
                         help="default: min(data.edge_subdivide, 1)")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--synthetic", action="store_true", default=True,
+                        help="the synthetic two-hand scene (always; "
+                             "accepted as the JAX CLI accepts it)")
     parser.add_argument("--config", default=None,
                         help="a YAML config whose model section builds the "
                              "model")

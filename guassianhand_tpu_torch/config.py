@@ -5,11 +5,16 @@ command-line overrides.
 ``yaml`` is imported only when a YAML path is given, so a run configured by
 overrides alone needs no YAML package. The run's merged config is written
 as JSON. Every key of the repo's configs loads, with the JAX package's
-value; unknown keys raise. Not every key has an effect: the synthetic
-scene reads none of ``DataConfig``'s InterHand2.6M paths and flags (the
-InterHand2.6M path, ``data/interhand.py``, reads them all), and the TPU
-layout keys of ``RasterizeConfig`` and the XLA knob ``backbone_scan`` of
-``OneShotConfig`` are stored with no effect (documented there). The
+value (every leaf of the JAX package's config tree); unknown keys raise.
+Not every key has an effect: the synthetic scene reads none of
+``DataConfig``'s InterHand2.6M paths and flags (the InterHand2.6M path,
+``data/interhand.py``, reads them all); the keys that choose only a TPU
+layout, an order of summation or a route to the same result
+(``RasterizeConfig``'s ``opacity_cull``, tile, cap and segment-sum keys,
+``RendererConfig.multiview_batched``, ``OneShotConfig``'s
+``backbone_scan`` and ``attn_*``), ``FitConfig.freeze_base_gradients`` and
+``LossWeights.l1_top`` / ``l1_top_ratio`` are stored with no effect (each
+documented there). The
 ``edit`` section is the renderer's ``EditConfig``: the fit CLI does not
 read it, as in the JAX package, and the edit CLI (``cli/edit.py``) takes
 its flags from its command line, as the JAX one does.

@@ -91,6 +91,17 @@ class OneShotConfig:
     # max(128, cap) interacting points attend, the rest pass through and are
     # counted as interaction_overflow; None attends over all of them
     interaction_cap: Optional[int] = None
+    # The JAX package's interaction-attention keys, accepted so that its
+    # configs load, with no effect here:
+    # - attn_dropout: active in JAX only with train=True, and nothing calls
+    #   the port's model in training mode;
+    # - attn_dense: JAX's materialised (N, N) route gives in eval mode the
+    #   attention that SelfAttn's one route computes, at O(N^2) memory;
+    # - attn_chunk: JAX's query/key chunk; the port's query chunk changes
+    #   no row's softmax, and the flash kernels take their own tiles.
+    attn_dropout: float = 0.1
+    attn_dense: bool = False
+    attn_chunk: int = 1024
     # store color_b as the rgb triple the renderer reads (3, Hm, Wm)
     # instead of the reference's 48 channels; renders are the same
     narrow_color_b: bool = False

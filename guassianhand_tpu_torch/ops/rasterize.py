@@ -52,16 +52,36 @@ class RasterizeConfig:
     # the JAX package's, so that its config dicts load unchanged.
     projection_impl: str = "xla"
     # The JAX package's TPU layout keys, accepted so that its configs load,
-    # with no effect here: the port bins every (Gaussian, tile) pair exactly
-    # with dynamic shapes (no tile, block or pair caps, no cell walk) and
-    # keeps colours in float32 (no packed rgb lane); ``interpret`` (Pallas'
-    # interpreter) has none either, since a CPU tensor always goes to a
-    # kernel's plain twin.
-    pack_rgb: bool = False
-    walk_cells: int = 0
+    # with no effect here:
+    # - opacity_cull: the port always applies the exact cull
+    #   (ops/common.opacity_cull_keep), which changes no pixel; off, JAX
+    #   bins the whole 3-sigma rect, the same image from more pairs;
+    # - pack_rgb, walk_cells, max_tiles_per_gaussian, max_blocks_per_tile,
+    #   pairs_per_gaussian: the port bins every (Gaussian, tile) pair
+    #   exactly with dynamic shapes (no tile, block or pair caps, no cell
+    #   walk) and keeps colours in float32 (no packed rgb lane);
+    # - tile_size, block_size: the image does not depend on them; the
+    #   port's tile stays ops/common.TILE (16), the composite kernel's CTA;
+    # - sort_stable: the port's pair sort is always stable, which is one
+    #   valid order of an unstable sort on exact depth ties;
+    # - grad_segsort, segreduce_pallas, segreduce_window, segreduce_chunk:
+    #   they choose only the order in which pair gradients are summed per
+    #   Gaussian; the sorted segment sum (ops/segreduce_cuda.py) always runs;
+    # - interpret (Pallas' interpreter): a CPU tensor always goes to a
+    #   kernel's plain twin.
+    opacity_cull: bool = True
+    tile_size: int = 16
+    block_size: int = 128
     max_tiles_per_gaussian: int = 16
     max_blocks_per_tile: int = 64
     pairs_per_gaussian: float = 4.5
+    sort_stable: bool = True
+    pack_rgb: bool = False
+    grad_segsort: bool = True
+    segreduce_pallas: bool = False
+    segreduce_window: int = 256
+    segreduce_chunk: int = 512
+    walk_cells: int = 0
     interpret: bool = False
 
     def __post_init__(self):

@@ -63,6 +63,9 @@ class RendererConfig:
     threshold_high: float = 0.9
     sh_degree: int = 3
     use_rgb: bool = True
+    # accepted so that the JAX package's configs load, with no effect here:
+    # JAX's per-view route (False) renders what the stacked canvas renders
+    multiview_batched: bool = True
     # render through the Gaussian->tile all_to_all exchange
     # (parallel/raster_shard.py::sharded_rasterize_batch) while a mesh is
     # published with parallel/mesh.py::use_exchange_mesh (the sharded fit

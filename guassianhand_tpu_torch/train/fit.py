@@ -45,6 +45,10 @@ class FitConfig:
     accumulate_grad_batches: int = 1
     # compute the fit-constant prefix of the features once per fit
     static_prefix_cache: bool = True
+    # JAX's stop_gradient on the frozen base before the forward: the port
+    # always freezes it by requires_grad_(False) (make_optimizer), and JAX
+    # documents bit-identical updates either way, so no effect here
+    freeze_base_gradients: bool = True
 
 
 def lr_schedule(cfg: FitConfig) -> Callable[[int], float]:

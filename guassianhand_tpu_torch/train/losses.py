@@ -1,6 +1,8 @@
 """Fitting losses (counterpart of ``train/losses.py``).
 
-- ``pix_loss``: l1 / l2 / lp pixel losses;
+- ``pix_loss``: l1 / l2 / lp pixel losses, and the top-K ones: a key
+  ``l1top<P>`` / ``l2top<P>`` is the mean of the largest P % of the
+  per-pixel channel sums of |diff| / diff^2;
 - ``compute_error``: the weighted sum of L1 + VGG + mask MSE;
 - ``identity_regularizers``: 100 mean|color_b| + mean(opacity_b^2)
   + 0.01 mean(map_bias^2).
@@ -28,6 +30,10 @@ class LossWeights:
     lp: float = 0.0
     vgg: float = 0.1
     mask: float = 1.0
+    # the JAX package's fields, which its compute_error does not read
+    # either: stored with no effect (pix_loss takes l1top<P> keys)
+    l1_top: float = 0.0
+    l1_top_ratio: float = 0.2
     color_b_reg: float = 100.0
     opacity_b_reg: float = 1.0
     map_bias_reg: float = 0.01
@@ -49,6 +55,13 @@ def pix_loss(src: torch.Tensor, tar: torch.Tensor,
         out["l2"] = weights["l2"] * (diff ** 2).mean()
     if weights.get("lp", 0.0) > 0:
         out["lp"] = weights["lp"] * ((abs_ref(diff) + 1e-4) ** 0.4).mean()
+    for key, w in weights.items():
+        if key.startswith(("l1top", "l2top")) and w > 0:
+            ratio = float(key[5:]) / 100.0
+            err = abs_ref(diff) if key.startswith("l1") else diff ** 2
+            per_px = err.sum(-3).reshape(diff.shape[0], -1)
+            k = max(1, int(per_px.shape[-1] * ratio))
+            out[key] = w * torch.topk(per_px, k, dim=-1).values.mean()
     return out
 
 

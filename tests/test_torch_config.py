@@ -85,21 +85,19 @@ def test_data_config_has_every_jax_field():
 def test_renderer_config_has_every_jax_field():
     """The port's RendererConfig has JAX's field names, with JAX's defaults
     (the raster config apart: the two packages' RasterizeConfig classes),
-    but for JAX's multiview_batched: the port always renders a sample's
-    views in one stacked raster, so the key is refused rather than
-    ignored. The exchange's overrides load into both packages with equal
-    values."""
+    multiview_batched included (stored with no effect: JAX's per-view
+    route renders what the port's stacked canvas renders). The exchange's
+    overrides load into both packages with equal values."""
     from guassianhand_tpu.render.renderer import RendererConfig as JR
     from guassianhand_tpu_torch.render.renderer import RendererConfig as TR
-    jax_only = {"multiview_batched"}
-    jfields = {f.name: f.default for f in dataclasses.fields(JR)
-               if f.name not in jax_only}
+    jfields = {f.name: f.default for f in dataclasses.fields(JR)}
     tfields = {f.name: f.default for f in dataclasses.fields(TR)}
     assert set(tfields) == set(jfields)
     assert {k: v for k, v in tfields.items() if k != "raster"} == \
         {k: v for k, v in jfields.items() if k != "raster"}
-    with pytest.raises(KeyError, match="multiview_batched"):
-        tconfig.load_config(None, ["model.renderer.multiview_batched=false"])
+    assert not tconfig.load_config(
+        None, ["model.renderer.multiview_batched=false"]
+    ).model.renderer.multiview_batched
     overrides = ["model.renderer.sharded_exchange=true",
                  "model.renderer.exchange_capacity=4096"]
     got = tconfig.load_config(None, overrides).model.renderer
